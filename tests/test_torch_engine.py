@@ -1,0 +1,158 @@
+"""Port's analyze_stack (CPU, plain engine) vs the JAX package's engines.
+
+The same images go through ``tissue_analysis_tpu.engine`` (the Pallas
+engine in interpret mode and the XLA blocked engine) and through
+``tissue_analysis_tpu_torch.engine``; every FeatureTable field must agree
+exactly (atol 0: all fields are integers or booleans).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tissue_analysis_tpu.core.stack import LabeledStack as JaxStack  # noqa: E402
+from tissue_analysis_tpu.core.synthetic import voronoi_stack  # noqa: E402
+from tissue_analysis_tpu.engine import (  # noqa: E402
+    analyze_stack_blocked,
+    analyze_stack_pallas,
+)
+from tissue_analysis_tpu_torch import engine  # noqa: E402
+from tissue_analysis_tpu_torch.core.stack import LabeledStack  # noqa: E402
+from tissue_analysis_tpu_torch.utils import timing  # noqa: E402
+
+FIELDS = (
+    "count", "s1", "s2", "cmin", "cmax",
+    "pair_lo", "pair_hi", "wall_face_counts", "margin",
+)
+
+# fixture name (tests/conftest.py, or "voronoi" below) -> background label
+IMAGES = {
+    "small3d": 1,
+    "gapped": 1,
+    "cube": 1,
+    "slabs": None,
+    "voronoi": 1,
+}
+
+
+@pytest.fixture(scope="session")
+def voronoi():
+    return voronoi_stack((32, 48, 130), 60, seed=2, voxelsize=(2.0, 0.5, 0.5))
+
+
+def assert_tables_equal(ref, port):
+    for f in FIELDS:
+        a, b = getattr(ref, f), getattr(port, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    np.testing.assert_array_equal(ref.ids, port.ids)
+    assert ref.ids.dtype == port.ids.dtype
+    assert ref.shape == port.shape
+    assert ref.voxelsize == port.voxelsize
+    assert ref.background_segment == port.background_segment
+
+
+@pytest.fixture(scope="module")
+def tables(request):
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            img = request.getfixturevalue(name)
+            bg = IMAGES[name]
+            js = JaxStack.from_array(img, background=bg)
+            ps = LabeledStack.from_array(img, background=bg)
+            cache[name] = (js, ps, engine.analyze_stack(ps))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_port_equals_pallas_engine(tables, name):
+    js, ps, port = tables(name)
+    assert_tables_equal(analyze_stack_pallas(js), port)
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_port_equals_blocked_engine(tables, name):
+    js, ps, port = tables(name)
+    assert_tables_equal(analyze_stack_blocked(js), port)
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_stack_from_reference_fields(tables, name):
+    """The port's relabel gives the reference's segment ids, and a stack
+    built from the reference stack's numpy fields gives the same table."""
+    js, ps, port = tables(name)
+    np.testing.assert_array_equal(np.asarray(js.dense), ps.dense.to(torch.int32).numpy())
+    assert ps.dense.dtype == (torch.uint16 if ps.n_labels <= 0xFFFF else torch.int32)
+    st = LabeledStack.from_numpy(
+        np.asarray(js.dense), js.ids, js.voxelsize, js.background_segment
+    )
+    assert_tables_equal(port, engine.analyze_stack(st, engine="torch"))
+
+
+def test_dict_overflow_retry_runs_and_converges(tables):
+    _, ps, port = tables("voronoi")
+    key = (ps.shape, ps.n_labels, 4)
+    engine._GOOD_L.pop(key, None)
+    with timing.collect() as t:
+        small = engine.analyze_stack(ps, L=4)
+    sweeps = [s for s in t.stages if s.name == "device sweep (block)"]
+    # the retry really ran: several sweeps, converged L above the request
+    assert len(sweeps) >= 2
+    assert engine._GOOD_L[key] == 4 * 2 ** (len(sweeps) - 1)
+    assert_tables_equal(port, small)
+    # a repeat call starts from the converged size: one sweep
+    with timing.collect() as t:
+        again = engine.analyze_stack(ps, L=4)
+    assert sum(s.name == "device sweep (block)" for s in t.stages) == 1
+    assert_tables_equal(port, again)
+
+
+def test_engine_selection_never_falls_back(tables, monkeypatch):
+    _, ps, port = tables("cube")
+    with pytest.raises(ValueError, match="cuda"):
+        engine.analyze_stack(ps, engine="cuda")
+    with pytest.raises(ValueError, match="unknown engine"):
+        engine.analyze_stack(ps, engine="pallas")
+    assert_tables_equal(port, engine.analyze_stack(ps, engine="torch"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LabeledStack.from_array(np.ones((4, 4, 4), np.uint8), device="cuda")
+
+
+def test_2d_stack_not_ported_yet():
+    st = LabeledStack.from_array(np.ones((8, 8), np.uint8) + np.eye(8, dtype=np.uint8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.analyze_stack(st)
+
+
+def test_more_than_65535_labels():
+    """int32 stacks have no label ceiling: a grid of 65,536 box cells
+    against closed-form moments and adjacency."""
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+
+    shape, cell = (64, 256, 256), (4, 4, 4)
+    grid = tuple(s // c for s, c in zip(shape, cell))
+    n = int(np.prod(grid))
+    st = LabeledStack.from_array(grid_stack(shape, cell), background=None)
+    assert n > 0xFFFF and st.dense.dtype == torch.int32
+    # 256 cells per 8x16x128 block: start at a dictionary that holds them
+    t = engine.analyze_stack(st, L=512)
+    assert t.n_labels == n and np.all(t.count == 64)
+    g = np.stack(np.unravel_index(np.arange(n), grid), axis=1).astype(np.int64)
+    org = g * np.asarray(cell)
+    np.testing.assert_array_equal(t.cmin, org)
+    np.testing.assert_array_equal(t.cmax, org + 3)
+    np.testing.assert_array_equal(t.s1, 64 * org + 16 * 6)
+    gz, gy, gx = grid
+    assert t.n_pairs == (gz - 1) * gy * gx + gz * (gy - 1) * gx + gz * gy * (gx - 1)
+    assert np.all(t.wall_face_counts.sum(axis=1) == 16)
+
+
+def test_analyze_entry_point(small3d, tables):
+    _, _, port = tables("small3d")
+    assert_tables_equal(port, engine.analyze(small3d, background=1))
