@@ -16,10 +16,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
    ``LabeledStack.from_array(device="cuda")`` → ``analyze_stack`` →
    ``graph_from_table``, checked for kernel launches, the stack's label and
    wall counts, and field-by-field equality with the plain version's table;
-5. timing: two warmups, best of 5, fenced with ``torch.cuda.synchronize``.
+5. timing: two warmups, best of 5, fenced with ``torch.cuda.synchronize``;
+6. a 2D image through the kernel at block (1, 128, 128) (the TPU's
+   kernel-v1 path): ``voronoi_stack((4096, 4096), 4000, seed=1)`` through
+   the ``SpatialImageAnalysis`` facade on the card, against the plain
+   engine (table, kernel outputs and facade queries);
+7. a label space past 2¹⁶ (kernel-v1's other path): ``grid_stack((512,)*3,
+   (8, 8, 8))``, 262,144 labels in int32, through the dictionary retries
+   32 → 64 → 128, against closed-form counts and the plain engine;
+8. the 3D facade at 512³ on the card against the same facade on the plain
+   engine, and ``neighbors(connectivity=3)`` with its time and peak memory;
+9. ``analyze_raw`` at 512³ (no host relabel) against ``analyze``, with the
+   stages of both.
 
-The last lines are a JSON record of the kernels, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+Every path is driven with the launch count set to 0 just before it and read
+just after. The last lines are a JSON record of the kernels, the
+``nvidia-smi`` line and ``{"ok": true, "device": {...}}``. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +47,14 @@ NCELLS = 3500
 SEED = 1
 EXPECT_LABELS = 2031
 EXPECT_PAIRS = 14176
+SIZE_2D, NCELLS_2D = 4096, 4000
+EXPECT_LABELS_2D, EXPECT_PAIRS_2D = 2933, 8773
+GRID_CELL = 8
+EXPECT_LABELS_GRID = (SIZE // GRID_CELL) ** 3  # 262,144
+EXPECT_PAIRS_GRID = 3 * (SIZE // GRID_CELL) ** 2 * (SIZE // GRID_CELL - 1)
+# a default block holds 1x2x16 grid cells plus 50 past its far faces: 82
+# dictionary labels, so L doubles 32 -> 64 -> 128 (three sweeps)
+EXPECT_GRID_LAUNCHES, EXPECT_GRID_L = 3, 128
 FIELDS = (
     "ids", "count", "s1", "s2", "cmin", "cmax",
     "pair_lo", "pair_hi", "wall_face_counts", "margin",
@@ -88,6 +109,208 @@ def tables_equal(a, b, what: str) -> None:
         x, y = getattr(a, f), getattr(b, f)
         if x.dtype != y.dtype or not np.array_equal(x, y):
             raise AssertionError(f"{what}: field {f} differs")
+
+
+def stages_line(stages) -> str:
+    return "; ".join(f"{s.name} {s.seconds * 1e3:.3f} ms" for s in stages.stages)
+
+
+def facade_equal(a, b, queries, what: str) -> None:
+    """The same facade queries on two analyses give equal results."""
+    import numpy as np
+
+    for q in queries:
+        x, y = getattr(a, q)(), getattr(b, q)()
+        if q == "inertia_axis":
+            same = x.keys() == y.keys() and all(
+                np.array_equal(x[k][0], y[k][0]) and np.array_equal(x[k][1], y[k][1])
+                for k in x
+            )
+        else:
+            same = x == y
+        if not same:
+            raise AssertionError(f"{what}: {q} differs")
+
+
+def phase_2d(log_prefix="[6]"):
+    """A 2D image through the facade on the card: kernel-v1's block."""
+    from tissue_analysis_tpu_torch import SpatialImageAnalysis
+    from tissue_analysis_tpu_torch.analysis import AnalysisConfig
+    from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack
+    from tissue_analysis_tpu_torch.engine import BLOCK_2D, _GOOD_L, analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep, block_sweep_reference
+    from tissue_analysis_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    img = voronoi_stack((SIZE_2D, SIZE_2D), NCELLS_2D, seed=SEED)
+    t_gen = time.perf_counter() - t0
+
+    block_sweep.launches = 0
+    a = SpatialImageAnalysis(img, background=1, device="cuda")
+    table = a.table()
+    sync()
+    launches = block_sweep.launches
+    if launches < 1:
+        raise AssertionError("the 2D path did not launch the block_sweep kernel")
+    if (table.n_labels, table.n_pairs) != (EXPECT_LABELS_2D, EXPECT_PAIRS_2D):
+        raise AssertionError(
+            f"2D: expected {EXPECT_LABELS_2D} labels / {EXPECT_PAIRS_2D} walls, "
+            f"got {table.n_labels} / {table.n_pairs}"
+        )
+    if int(table.count.sum()) != SIZE_2D ** 2:
+        raise AssertionError("2D: pixel counts do not cover the image")
+    stack = a.stack()
+    tables_equal(analyze_stack(stack, engine="torch"), table, "2D cuda vs plain table")
+    lifted = stack.dense[None]
+    n = stack.n_labels
+    L = _GOOD_L[((1, SIZE_2D, SIZE_2D), n, BLOCK_2D, 32)]
+    err = compare_sweeps(
+        block_sweep(lifted, n, BLOCK_2D, L), block_sweep_reference(lifted, n, BLOCK_2D, L)
+    )
+    plain = SpatialImageAnalysis(
+        img, background=1, device="cuda", config=AnalysisConfig(background=1, engine="torch")
+    )
+    facade_equal(a, plain, ("area", "perimeter", "neighbors", "inertia_axis", "L1"),
+                 "2D facade cuda vs plain")
+    t_k = best_of(lambda: block_sweep(lifted, n, BLOCK_2D, L))
+    t_p = best_of(lambda: block_sweep_reference(lifted, n, BLOCK_2D, L))
+    t_whole = best_of(lambda: SpatialImageAnalysis(img, background=1, device="cuda").table())
+    with timing.collect() as stages:
+        SpatialImageAnalysis(img, background=1, device="cuda").table()
+    log(f"{log_prefix} 2D {SIZE_2D}^2: {launches} kernel launch(es) at block {BLOCK_2D}, "
+        f"L={L}, {table.n_labels} labels, {table.n_pairs} walls; table, kernel "
+        f"(max |diff| {err}) and facade area/perimeter/neighbors/inertia_axis/L1 "
+        f"== plain engine's (image generated in {t_gen:.1f} s)")
+    log(f"{log_prefix} 2D kernel {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms; whole facade "
+        f"pass (relabel + H2D + analyze) {t_whole * 1e3:.3f} ms "
+        f"({SIZE_2D ** 2 / t_whole / 1e6:.1f} Mpix/s)")
+    log(f"{log_prefix} stages of one 2D facade pass: {stages_line(stages)}")
+    return launches, err, t_k, t_p
+
+
+def phase_grid(log_prefix="[7]"):
+    """262,144 labels (int32) through the dictionary retries."""
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+    from tissue_analysis_tpu_torch.engine import _GOOD_L, analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import (
+        DEFAULT_BLOCK, block_sweep, block_sweep_reference,
+    )
+    from tissue_analysis_tpu_torch.utils import timing
+
+    img = grid_stack((SIZE,) * 3, (GRID_CELL,) * 3)
+    stack = LabeledStack.from_array(img, background=None, device="cuda")
+    n = stack.n_labels
+    if n != EXPECT_LABELS_GRID or stack.dense.dtype != (
+        torch.int32 if n > 0xFFFF else torch.uint16
+    ):
+        raise AssertionError(f"grid: {n} labels in {stack.dense.dtype}")
+    _GOOD_L.pop((stack.shape, n, DEFAULT_BLOCK, 32), None)
+    block_sweep.launches = 0
+    table = analyze_stack(stack)
+    sync()
+    launches = block_sweep.launches
+    L = _GOOD_L[(stack.shape, n, DEFAULT_BLOCK, 32)]
+    if (launches, L) != (EXPECT_GRID_LAUNCHES, EXPECT_GRID_L):
+        raise AssertionError(
+            f"grid: expected {EXPECT_GRID_LAUNCHES} launches up to L={EXPECT_GRID_L}, "
+            f"got {launches} up to L={L}"
+        )
+    if not np.all(table.count == GRID_CELL ** 3):
+        raise AssertionError("grid: a cell's voxel count is not 512")
+    if table.n_pairs != EXPECT_PAIRS_GRID:
+        raise AssertionError(f"grid: {table.n_pairs} walls, expected {EXPECT_PAIRS_GRID}")
+    if not np.all(table.wall_face_counts.sum(axis=1) == GRID_CELL ** 2):
+        raise AssertionError("grid: a wall's face total is not 64")
+    tables_equal(analyze_stack(stack, engine="torch"), table, "grid cuda vs plain table")
+    dense = stack.dense
+    dense_dtype = str(dense.dtype).replace("torch.", "")
+    err = compare_sweeps(
+        block_sweep(dense, n, DEFAULT_BLOCK, L), block_sweep_reference(dense, n, DEFAULT_BLOCK, L)
+    )
+    t_k = best_of(lambda: block_sweep(dense, n, DEFAULT_BLOCK, L))
+    t_p = best_of(lambda: block_sweep_reference(dense, n, DEFAULT_BLOCK, L))
+    t_an = best_of(lambda: analyze_stack(stack))
+    with timing.collect() as stages:
+        analyze_stack(stack)
+    log(f"{log_prefix} grid {SIZE}^3 cell {GRID_CELL}^3: {launches} kernel launches "
+        f"(up to L={L}), {n} labels {dense_dtype}, {table.n_pairs} walls, every count "
+        f"{GRID_CELL ** 3}, every wall 64 faces; table == plain engine's; kernel at "
+        f"L={L} == plain version (max |diff| {err})")
+    log(f"{log_prefix} grid kernel L={L} {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms; "
+        f"analyze_stack (cuda, converged L) {t_an * 1e3:.3f} ms")
+    log(f"{log_prefix} stages of one grid analyze_stack: {stages_line(stages)}")
+    return launches, err, t_k, t_p
+
+
+def phase_facade_3d(img, log_prefix="[8]"):
+    """The 3D facade at 512³ on the card vs the same on the plain engine."""
+    import torch
+
+    from tissue_analysis_tpu_torch import SpatialImageAnalysis
+    from tissue_analysis_tpu_torch.analysis import AnalysisConfig
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+
+    block_sweep.launches = 0
+    a = SpatialImageAnalysis(img, background=1, device="cuda")
+    queries = ("volume", "neighbors", "L1", "border_cells", "wall_surfaces")
+    for q in queries:
+        getattr(a, q)()
+    sync()
+    launches = block_sweep.launches
+    if launches < 1:
+        raise AssertionError("the 3D facade did not launch the block_sweep kernel")
+    plain = SpatialImageAnalysis(
+        img, background=1, device="cuda", config=AnalysisConfig(background=1, engine="torch")
+    )
+    facade_equal(a, plain, queries, "3D facade cuda vs plain")
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    nb26 = a.neighbors(connectivity=3)
+    sync()
+    t_26 = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n26 = sum(len(v) for v in nb26.values()) // 2
+    n6 = sum(len(v) for v in a.neighbors().values()) // 2
+    if not n26 >= n6 > 0:
+        raise AssertionError(f"26-connectivity found {n26} pairs, 6-connectivity {n6}")
+    log(f"{log_prefix} 3D facade {SIZE}^3: {launches} kernel launch(es); volume, neighbors, "
+        f"L1, border_cells, wall_surfaces == plain engine's; neighbors(connectivity=3) "
+        f"{n26} pairs (6-conn {n6}) in {t_26 * 1e3:.3f} ms, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_raw(img, log_prefix="[9]"):
+    """analyze_raw at 512³ (no host relabel) vs analyze."""
+    from tissue_analysis_tpu_torch.engine import analyze, analyze_raw
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+    from tissue_analysis_tpu_torch.utils import timing
+
+    block_sweep.launches = 0
+    raw = analyze_raw(img, background=1, device="cuda")
+    sync()
+    launches = block_sweep.launches
+    if launches < 1:
+        raise AssertionError("analyze_raw did not launch the block_sweep kernel")
+    tables_equal(analyze(img, background=1, device="cuda"), raw, "analyze_raw vs analyze")
+    t_raw = best_of(lambda: analyze_raw(img, background=1, device="cuda"))
+    t_rel = best_of(lambda: analyze(img, background=1, device="cuda"))
+    with timing.collect() as st_raw:
+        analyze_raw(img, background=1, device="cuda")
+    with timing.collect() as st_rel:
+        analyze(img, background=1, device="cuda")
+    if not any(s.name == "raw-mode host compaction" for s in st_raw.stages):
+        raise AssertionError("analyze_raw took the relabel path")
+    log(f"{log_prefix} analyze_raw {SIZE}^3: {launches} kernel launch(es), table == "
+        f"analyze()'s; whole pass {t_raw * 1e3:.3f} ms vs relabel path {t_rel * 1e3:.3f} ms")
+    log(f"{log_prefix} stages, raw: {stages_line(st_raw)}")
+    log(f"{log_prefix} stages, relabel: {stages_line(st_rel)}")
+    return launches
 
 
 def main() -> int:
@@ -206,18 +429,39 @@ def main() -> int:
     with timing.collect() as stages:
         graph_from_table(analyze_stack(
             LabeledStack.from_array(img, background=1, device="cuda")))
-    log("[5] stages of one whole pass: " + "; ".join(
-        f"{s.name} {s.seconds * 1e3:.3f} ms" for s in stages.stages))
+    log("[5] stages of one whole pass: " + stages_line(stages))
 
+    # ---- 6-9. kernel-v1's paths (2D, n >= 2^16), the facade, analyze_raw
+    l2d, e2d, k2d, p2d = phase_2d()
+    lgr, egr, kgr, pgr = phase_grid()
+    phase_facade_3d(img)
+    phase_raw(img)
+
+    src = "tissue_analysis_tpu_torch/csrc/block_sweep.cu"
     print(json.dumps({"kernels": [{
         "name": "block_sweep",
         "route": "cuda",
-        "source": "tissue_analysis_tpu_torch/csrc/block_sweep.cu",
+        "source": src,
         "replaces": "tissue_analysis_tpu/ops/pallas_block.py:830",
         "launches": launches,
         "max_abs_err": float(max_err),
         "ms": t_kernel * 1e3,
         "plain_ms": t_plain * 1e3,
+    }, {
+        # kernel-v1's contract: the 2D lift and the int32 label space; the
+        # times are the sums over the 4096^2 image and the grid 512^3 stack
+        "name": "block_sweep (kernel-v1 contract: 2D block 1x128x128, n >= 2^16)",
+        "route": "cuda",
+        "source": src,
+        "replaces": "tissue_analysis_tpu/ops/pallas_block.py:678",
+        "launches": l2d + lgr,
+        "max_abs_err": float(max(e2d, egr)),
+        "ms": (k2d + kgr) * 1e3,
+        "plain_ms": (p2d + pgr) * 1e3,
+        "ms_2d": k2d * 1e3,
+        "plain_ms_2d": p2d * 1e3,
+        "ms_grid8": kgr * 1e3,
+        "plain_ms_grid8": pgr * 1e3,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""CUDA kernel vs its plain PyTorch version, on the card.
+"""CUDA kernel vs its plain PyTorch version, and the card vs the CPU.
 
 Marked ``cuda``: every test skips without a CUDA device. On a machine with
 one (and nvcc), run them without the JAX test configuration::
@@ -105,3 +105,90 @@ def test_dict_size_beyond_shared_memory_raises(dev):
     st = _stack((8, 16, 128), 10, 0, dev)
     with pytest.raises(ValueError, match="shared-memory"):
         block_sweep(st.dense, st.n_labels, L=max_dict_size() + 1)
+
+
+def _sparse_ids(dense, n, seed):
+    """Segment ids 0..k-1 → distinct ids spread over 0..n-1 (int32)."""
+    k = int(dense.to(torch.int32).max()) + 1
+    lut = np.sort(np.random.default_rng(seed).choice(n, size=k, replace=False))
+    lut[-1] = n - 1
+    return torch.from_numpy(lut.astype(np.int32)).to(dense.device)[dense.to(torch.int64)]
+
+
+@pytest.mark.parametrize(
+    "shape,ncells,block",
+    [((16, 32, 256), 60, (8, 16, 128)), ((1, 300, 520), 50, (1, 128, 128))],
+)
+def test_kernel_equals_plain_version_label_space_past_uint16(dev, shape, ncells, block):
+    """K2's label range: ids spread over n = 70,000 (int32)."""
+    st = _stack(shape, ncells, 0, dev)
+    dense = _sparse_ids(st.dense, 70000, 3).contiguous()
+    k = block_sweep(dense, 70000, block, 32)
+    torch.cuda.synchronize()
+    r = block_sweep_reference(dense, 70000, block, 32)
+    _assert_sweeps_equal(k, r)
+    assert not bool(k.ovf.any())
+
+
+def test_kernel_equals_plain_version_at_L128(dev):
+    """A dense grid (8³ cells: 82 labels per default block) at L = 128,
+    the largest dictionary the kernel's shared memory holds."""
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+
+    st = LabeledStack.from_array(grid_stack((64, 128, 256), (8, 8, 8)), device=dev)
+    dense = st.dense.to(torch.int32)
+    assert max_dict_size() >= 128
+    k = block_sweep(dense, st.n_labels, (8, 16, 128), 128)
+    torch.cuda.synchronize()
+    r = block_sweep_reference(dense, st.n_labels, (8, 16, 128), 128)
+    _assert_sweeps_equal(k, r)
+    assert not bool(k.ovf.any())
+    assert int((r.ids < 2**31 - 1).sum(dim=1).max()) == 82
+
+
+FIELDS = ("ids", "count", "s1", "s2", "cmin", "cmax", "pair_lo", "pair_hi",
+          "wall_face_counts", "margin")
+
+
+def test_2d_cuda_equals_cpu(dev):
+    img = voronoi_stack((600, 700), 120, seed=2, voxelsize=(0.5, 2.0))
+    cpu = engine.analyze(img, background=1)
+    before = block_sweep.launches
+    gpu = engine.analyze(img, background=1, device=dev)
+    assert block_sweep.launches > before
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(cpu, f), getattr(gpu, f), err_msg=f)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int64])
+def test_analyze_raw_cuda_equals_cpu(dev, dtype):
+    img = np.asarray(voronoi_stack((40, 48, 136), 90, seed=4)).astype(dtype)
+    cpu = engine.analyze(img, background=1)
+    before = block_sweep.launches
+    gpu = engine.analyze_raw(img, background=1, device=dev)
+    assert block_sweep.launches > before
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(cpu, f), getattr(gpu, f), err_msg=f)
+
+
+@pytest.mark.parametrize("shape,ncells", [((40, 48, 72), 60), ((300, 340), 60)])
+def test_facade_cuda_equals_cpu(dev, shape, ncells):
+    from tissue_analysis_tpu_torch.analysis import SpatialImageAnalysis, hollow_out_cells
+
+    img = voronoi_stack(shape, ncells, seed=5)
+    cpu = SpatialImageAnalysis(img, background=1)
+    gpu = SpatialImageAnalysis(img, background=1, device=dev)
+    assert gpu.stack().device.type == "cuda"
+    before = block_sweep.launches
+    for q, kw in (("volume", {}), ("neighbors", {}), ("L1", {}),
+                  ("border_cells", {}), ("wall_surfaces", {}),
+                  ("neighbors", {"connectivity": len(shape)})):
+        assert getattr(cpu, q)(**kw) == getattr(gpu, q)(**kw), q
+    assert block_sweep.launches > before
+    for l, (vecs, vals) in cpu.inertia_axis().items():
+        g_vecs, g_vals = gpu.inertia_axis()[l]
+        np.testing.assert_array_equal(vecs, g_vecs)
+        np.testing.assert_array_equal(vals, g_vals)
+    np.testing.assert_array_equal(
+        np.asarray(hollow_out_cells(img, 1)), np.asarray(hollow_out_cells(img, 1, device=dev))
+    )

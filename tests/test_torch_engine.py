@@ -19,6 +19,7 @@ from tissue_analysis_tpu.engine import (  # noqa: E402
 )
 from tissue_analysis_tpu_torch import engine  # noqa: E402
 from tissue_analysis_tpu_torch.core.stack import LabeledStack  # noqa: E402
+from tissue_analysis_tpu_torch.ops.block_sweep import DEFAULT_BLOCK  # noqa: E402
 from tissue_analysis_tpu_torch.utils import timing  # noqa: E402
 
 FIELDS = (
@@ -96,7 +97,7 @@ def test_stack_from_reference_fields(tables, name):
 
 def test_dict_overflow_retry_runs_and_converges(tables):
     _, ps, port = tables("voronoi")
-    key = (ps.shape, ps.n_labels, 4)
+    key = (ps.shape, ps.n_labels, DEFAULT_BLOCK, 4)
     engine._GOOD_L.pop(key, None)
     with timing.collect() as t:
         small = engine.analyze_stack(ps, L=4)
@@ -125,9 +126,21 @@ def test_engine_selection_never_falls_back(tables, monkeypatch):
 
 
 def test_2d_stack_not_ported_yet():
+    """2D stacks used to raise NotImplementedError; they now run through
+    the [1, Y, X] lift (held against the JAX engines in test_torch_2d.py).
+    Here: the closed-form tables of a diagonal on an 8×8 image."""
     st = LabeledStack.from_array(np.ones((8, 8), np.uint8) + np.eye(8, dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.analyze_stack(st)
+    t = engine.analyze_stack(st)
+    assert t.shape == (8, 8) and t.s1.shape == (2, 2) and t.s2.shape == (2, 3)
+    np.testing.assert_array_equal(t.ids, [1, 2])
+    np.testing.assert_array_equal(t.count, [56, 8])
+    np.testing.assert_array_equal(t.s1[1], [28, 28])
+    # the diagonal touches its 1-neighbours along y 7 times and along x 7 times
+    # in each direction: 14 faces per axis
+    np.testing.assert_array_equal(t.wall_face_counts, [[14, 14]])
+    assert t.margin.tolist() == [True, True]
+    with pytest.raises(ValueError, match="2D or 3D"):
+        engine.analyze_stack(LabeledStack(st.dense[None, None], st.ids, (1.0,) * 4, None))
 
 
 def test_more_than_65535_labels():

@@ -83,3 +83,16 @@ def test_graph_from_image_entry_point(small3d, tables):
         jax_graph_from_table(ref, background=1),
         graph_from_image(small3d, background=1),
     )
+
+
+def test_graph_from_image_2d(small2d):
+    """graph_from_image on a 2D image (the [1, Y, X] lift) equals the JAX
+    package's."""
+    from tissue_analysis_tpu.graph.from_image import (
+        graph_from_image as jax_graph_from_image,
+    )
+
+    g_ref = jax_graph_from_image(small2d, background=1)
+    g_port = graph_from_image(small2d, background=1)
+    assert g_port.nb_edges() > 0
+    assert_graphs_equal(g_ref, g_port)

@@ -33,10 +33,19 @@ def test_port_runs_with_jax_blocked():
         import tissue_analysis_tpu_torch as T
         from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack
 
-        t = T.analyze(voronoi_stack((16, 16, 16), 12, seed=0), background=1)
+        import tissue_analysis_tpu_torch.analysis as A
+        import tissue_analysis_tpu_torch.ops.stencil  # noqa: F401
+
+        img = voronoi_stack((16, 16, 16), 12, seed=0)
+        t = T.analyze(img, background=1)
         g = T.graph_from_table(t)
         assert t.n_labels > 2 and t.n_pairs > 0 and g.nb_edges() > 0
         assert int(t.count.sum()) == 16 ** 3
+        raw = T.analyze_raw(img, background=1)
+        assert np.array_equal(raw.count, t.count)
+        a = A.SpatialImageAnalysis(voronoi_stack((24, 20), 8, seed=1), background=1)
+        assert a.nb_labels() > 2 and len(a.neighbors(connectivity=2)) > 2
+        assert A.hollow_out_cells(img, background=1).shape == img.shape
         leaked = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "tissue_analysis_tpu")

@@ -8,8 +8,8 @@ pinned to segment 0 when present.
 
 ``dense`` is ``uint16`` while the segment ids and the pad label ``n`` fit
 (n ≤ 65535), else ``int32``. PyTorch's ``uint16`` supports little beyond
-``==``, ``unique`` and ``.to``: consumers widen it once (or inside a kernel)
-and never compute on it directly.
+``==``, ``unique`` and ``.to``: consumers widen it once (:func:`widened`,
+or inside a kernel) and never compute on it directly.
 """
 
 from __future__ import annotations
@@ -20,7 +20,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["LabeledStack", "resolve_device"]
+__all__ = ["LabeledStack", "dense_dtype", "resolve_device", "widened"]
+
+# unsigned types torch stores but cannot order, reduce or select on, and
+# the signed type each round-trips through exactly
+_WIDER = {torch.uint16: torch.int32, torch.uint32: torch.int64, torch.uint64: torch.int64}
 
 
 def resolve_device(device) -> torch.device:
@@ -33,7 +37,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _dense_dtype(n_labels: int):
+def widened(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy in a signed type torch computes on
+    (``uint16`` → ``int32``, ``uint32``/``uint64`` → ``int64``)."""
+    return t.to(_WIDER[t.dtype]) if t.dtype in _WIDER else t
+
+
+def dense_dtype(n_labels: int):
+    """(numpy, torch) dtype of a stack of ``n_labels`` segment ids."""
     # segment ids and the pad sentinel n_labels fit uint16 — halves the
     # host->device transfer and the sweep's read traffic
     return (np.uint16, torch.uint16) if n_labels <= 0xFFFF else (np.int32, torch.int32)
@@ -99,7 +110,7 @@ class LabeledStack:
 
         dev = resolve_device(device)
         ids = np.asarray(ids, dtype=np.int64)
-        np_dtype, _ = _dense_dtype(ids.shape[0])
+        np_dtype, _ = dense_dtype(ids.shape[0])
         # torch.from_numpy shares memory and needs a writable C-order array
         dense = np.require(dense, dtype=np_dtype, requirements=["C", "W"])
         with timing.stage("ingest: host->device transfer", int(dense.size), dev):

@@ -1,13 +1,20 @@
 // Fused per-block sweep of a dense-relabeled 3D stack (Hopper, sm_90a).
 //
-// Replaces the TPU kernel tissue_analysis_tpu/ops/pallas_block.py::
-// _kernel_factory_v2 (kernel-v2). The contract is the same; the TPU's
-// workarounds (bf16 one-hot MXU dots, 8-bit value splits, hi/lo split
-// columns, the hashed min/max dictionary chain, extras plane packing) are
-// not carried over: this card has int64 and shared-memory atomics.
+// Replaces both TPU kernels of tissue_analysis_tpu/ops/pallas_block.py,
+// which share one per-block contract:
+//   - _kernel_factory_v2 (kernel-v2): block 8x16x128, n < 2^16;
+//   - _kernel_factory (kernel-v1): any block shape and label count. It
+//     carries every 2D image (lifted to [1, Y, X], block 1x128x128) and
+//     every label space with n >= 2^16 (int32 labels).
+// The TPU's workarounds are not carried over: bf16 one-hot MXU dots, 8-bit
+// value splits, hi/lo split columns, the hashed min/max dictionary chain,
+// extras plane packing, and v1's three globally shifted neighbour copies
+// with its local lo/hi moments rebuilt afterwards in XLA. This card has
+// int64 and shared-memory atomics, and reads the neighbours in place.
 //
-// One CUDA block per voxel block of shape (bz, by, bx) (runtime arguments,
-// default 8x16x128), in z-major block order. Coordinates past the stack's
+// One CUDA block per voxel block of shape (bz, by, bx) (runtime arguments:
+// 8x16x128 for 3D, 1x128x128 for a lifted 2D image), in z-major block
+// order. Coordinates past the stack's
 // extent read as the dropped label n, so no padded copy of the stack exists.
 // Per block:
 //   1. dictionary: the distinct labels < n of the block's voxels and of the
@@ -29,7 +36,10 @@
 // contention of shared-memory atomics on the few hot slots of a block (a
 // warp's lanes mostly share one label). This first design does nothing
 // about that yet beyond caching the last hash lookup per thread;
-// warp-aggregated atomics are later work.
+// warp-aggregated atomics are later work. Dense label spaces need a large
+// dictionary: the [L, 3L] face matrix sits in shared memory, so L = 128
+// takes ~207 KB and one block per SM, and L above ~135 does not fit (the
+// wrapper raises). The rank step is O(H^2 / threads), H = 2L at L >= 32.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -2,8 +2,11 @@
 
 The whole per-voxel work is ONE per-block sweep (``ops/block_sweep.py``),
 followed by a small combine and pair reduction on the same device
-(``ops/combine.py``) and an exact host assembly. Two engines give
-bit-identical tables:
+(``ops/combine.py``) and an exact host assembly. A 2D image is swept as a
+``[1, Y, X]`` view with flat ``(1, 128, 128)`` blocks and its synthetic z
+axis is dropped afterwards. :func:`analyze_raw` sweeps the raw label values
+directly (no host relabel) and compacts the result on the host. Two engines
+give bit-identical tables:
 
 - ``"cuda"``  — the hand-written CUDA kernel (a stack on a CUDA device);
 - ``"torch"`` — its plain PyTorch version (any device).
@@ -18,8 +21,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-from tissue_analysis_tpu_torch.core.stack import LabeledStack
+from tissue_analysis_tpu_torch.core.stack import (
+    LabeledStack,
+    dense_dtype,
+    resolve_device,
+    widened,
+)
 from tissue_analysis_tpu_torch.features.table import FeatureTable
 from tissue_analysis_tpu_torch.ops import combine
 from tissue_analysis_tpu_torch.ops.block_sweep import (
@@ -29,15 +38,20 @@ from tissue_analysis_tpu_torch.ops.block_sweep import (
 )
 from tissue_analysis_tpu_torch.utils import timing
 
-__all__ = ["analyze", "analyze_stack", "ENGINES"]
+__all__ = ["analyze", "analyze_raw", "analyze_stack", "ENGINES"]
 
 ENGINES = ("auto", "cuda", "torch")
 
 #: dictionary-size doublings tried after an overflow before giving up
 MAX_DICT_RETRIES = 4
 
-# converged dictionary size per (shape, n, requested L): repeated analyses
-# of same-sized stacks skip the overflow discovery sweeps
+#: block of the lifted [1, Y, X] sweep of a 2D image (as the TPU engine's)
+BLOCK_2D = (1, 128, 128)
+
+# converged dictionary size per (shape, n, block, requested L): repeated
+# analyses of same-sized stacks skip the overflow discovery sweeps. The
+# block is part of the key: a [1, Y, X] stack and a lifted 2D image share
+# shape and n but not the block, nor the labels per block.
 _GOOD_L: dict = {}
 
 
@@ -64,21 +78,25 @@ def analyze_stack(
     ``L`` is the starting per-block dictionary size; a block with more
     labels makes the sweep rerun with L doubled (at most
     ``MAX_DICT_RETRIES`` times), and the converged size is remembered for
-    later stacks of the same shape and label count."""
+    later stacks of the same shape, label count and block. A 2D stack is
+    swept as ``[1, Y, X]`` with block :data:`BLOCK_2D`."""
+    if stack.ndim == 2:
+        return _strip_z(_sweep_table(_lift_2d(stack), engine, L, BLOCK_2D), stack)
     if stack.ndim != 3:
-        raise NotImplementedError(
-            "2D stacks are not ported yet (ROADMAP.md, Queue 1: 2D images "
-            "through the z=1 lift)"
-        )
+        raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
+    return _sweep_table(stack, engine, L, DEFAULT_BLOCK)
+
+
+def _sweep_table(stack: LabeledStack, engine: str, L: int, block) -> FeatureTable:
     sweep = _pick_sweep(stack, engine)
     n = stack.n_labels
     dev = stack.device
     voxels = int(np.prod(stack.shape))
-    key = (stack.shape, n, int(L))
+    key = (stack.shape, n, tuple(block), int(L))
     Lc = _GOOD_L.get(key, int(L))
     for _attempt in range(MAX_DICT_RETRIES + 1):
         with timing.stage("device sweep (block)", voxels, dev):
-            out = sweep(stack.dense, n, DEFAULT_BLOCK, Lc)
+            out = sweep(stack.dense, n, block, Lc)
             overflow = bool(out.ovf.any())
         if not overflow:
             break
@@ -130,15 +148,158 @@ def _margin_from_bbox(count, cmin, cmax, shape) -> np.ndarray:
     return present & (lo | hi)
 
 
+def _lift_2d(stack: LabeledStack) -> LabeledStack:
+    """[Y, X] stack → [1, Y, X] view, so 2D rides the 3D block sweep."""
+    return LabeledStack(
+        dense=stack.dense[None],
+        ids=stack.ids,
+        voxelsize=(1.0,) + stack.voxelsize,
+        background_segment=stack.background_segment,
+    )
+
+
+def _strip_z(table: FeatureTable, stack: LabeledStack) -> FeatureTable:
+    """Drop the synthetic z axis from a lifted-2D feature table.
+
+    z moments are identically zero (all coordinates 0); s2 keeps the
+    (yy, yx, xx) columns — the order is zz, zy, zx, yy, yx, xx. The margin
+    is recomputed from the 2D bbox: in the lifted stack every label touches
+    both z faces.
+    """
+    return FeatureTable(
+        ids=table.ids,
+        shape=stack.shape,
+        voxelsize=stack.voxelsize,
+        background_segment=table.background_segment,
+        count=table.count,
+        s1=table.s1[:, 1:],
+        s2=table.s2[:, 3:6],
+        cmin=table.cmin[:, 1:],
+        cmax=table.cmax[:, 1:],
+        pair_lo=table.pair_lo,
+        pair_hi=table.pair_hi,
+        wall_face_counts=table.wall_face_counts[:, 1:],
+        margin=_margin_from_bbox(
+            table.count, table.cmin[:, 1:], table.cmax[:, 1:], stack.shape
+        ),
+    )
+
+
 def analyze(
     image,
     voxelsize: Optional[Tuple[float, ...]] = None,
     background: Optional[int] = 1,
     device=None,
+    engine: str = "auto",
 ) -> FeatureTable:
     """Analyze a labeled image (host array / SpatialImage) in one fused pass
     on ``device`` (default: the CPU)."""
     stack = LabeledStack.from_array(
         image, voxelsize=voxelsize, background=background, device=device
     )
-    return analyze_stack(stack)
+    return analyze_stack(stack, engine=engine)
+
+
+def analyze_raw(
+    image,
+    voxelsize: Optional[Tuple[float, ...]] = None,
+    background: Optional[int] = 1,
+    engine: str = "auto",
+    max_raw_id: int = 1 << 20,
+    device=None,
+) -> FeatureTable:
+    """Analyze the RAW labeled image on ``device`` with no host relabel.
+
+    The raw array goes to the device as it is; the id range is taken there
+    and the sweep runs in the raw id space ``n = max + 1`` (every label is
+    its own segment id). A host compaction (:func:`_compact_raw_table`,
+    O(labels + pairs)) then rebuilds the standard convention, so the
+    result is bit-identical to ``analyze(image, ...)``.
+
+    Negative labels, ids ≥ ``max_raw_id`` (a sparse huge id would inflate
+    the per-label tables) and 2D images take the relabel path
+    (:func:`analyze`) instead: these are input rules, not device fallbacks.
+    """
+    dev = resolve_device(device)
+    arr = np.asarray(image)
+    if voxelsize is None:
+        voxelsize = getattr(image, "voxelsize", None)
+    if voxelsize is None:
+        voxelsize = (1.0,) * arr.ndim
+    voxelsize = tuple(float(v) for v in voxelsize)
+    if len(voxelsize) != arr.ndim:
+        raise ValueError("voxelsize length must equal image ndim")
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise TypeError(
+            f"labeled images must have an integer dtype, got {arr.dtype}"
+        )
+    if arr.ndim != 3:
+        return analyze(arr, voxelsize, background, dev, engine)
+    voxels = int(arr.size)
+    with timing.stage("ingest: host->device transfer (raw)", voxels, dev):
+        raw = torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(dev)
+    with timing.stage("ingest: device id-range scan", None, dev):
+        mn, mx = (int(v) for v in torch.aminmax(widened(raw)))
+    if mn < 0 or mx >= max_raw_id:
+        return analyze(arr, voxelsize, background, dev, engine)
+    n_sweep = mx + 1
+    want = dense_dtype(n_sweep)[1]
+    dense = raw if raw.dtype == want else raw.to(want)
+    bseg = (
+        int(background)
+        if background is not None and 0 <= int(background) <= mx
+        else None
+    )
+    stack = LabeledStack(
+        dense=dense,
+        ids=np.arange(n_sweep, dtype=np.int64),
+        voxelsize=voxelsize,
+        background_segment=bseg,
+    )
+    table = analyze_stack(stack, engine=engine)
+    with timing.stage("raw-mode host compaction"):
+        return _compact_raw_table(table, background)
+
+
+def _compact_raw_table(t: FeatureTable, background) -> FeatureTable:
+    """Raw-id-space table (one row per id in 0..max) → standard convention.
+
+    Present labels are exactly the rows with voxels; absent ids cannot occur
+    in pairs (both sides of a pair have voxels). Reproduces
+    ``LabeledStack.from_array``'s convention bit for bit: ids ascending with
+    the background swapped to segment 0, and the pair COO re-sorted
+    ascending by (lo << 32 | hi) in the new segment space.
+    """
+    ids = np.nonzero(t.count > 0)[0].astype(np.int64)
+    n_new = int(ids.shape[0])
+    perm = np.arange(n_new)
+    bseg = None
+    if background is not None:
+        pos = int(np.searchsorted(ids, int(background)))
+        if pos < n_new and ids[pos] == int(background):
+            if pos != 0:
+                perm[[0, pos]] = perm[[pos, 0]]
+            bseg = 0
+    new_ids = ids[perm]
+    seg_of_raw = np.zeros(t.n_labels, dtype=np.int64)
+    seg_of_raw[new_ids] = np.arange(n_new)
+    plo = seg_of_raw[t.pair_lo]
+    phi = seg_of_raw[t.pair_hi]
+    lo = np.minimum(plo, phi)
+    hi = np.maximum(plo, phi)
+    order = np.argsort((lo << 32) | hi)
+    return FeatureTable(
+        ids=new_ids,
+        shape=t.shape,
+        voxelsize=t.voxelsize,
+        background_segment=bseg,
+        count=t.count[new_ids],
+        s1=t.s1[new_ids],
+        s2=t.s2[new_ids],
+        cmin=t.cmin[new_ids],
+        cmax=t.cmax[new_ids],
+        pair_lo=lo[order].astype(np.int32),
+        pair_hi=hi[order].astype(np.int32),
+        wall_face_counts=t.wall_face_counts[order],
+        margin=t.margin[new_ids],
+    )

@@ -1,8 +1,17 @@
 """Fused per-block sweep: the CUDA kernel's wrapper and its plain version.
 
-Counterpart of ``tissue_analysis_tpu/ops/pallas_block.py`` (kernel-v2,
-``_kernel_factory_v2``). For every block of shape ``block`` (z-major block
-order, ragged far edges allowed) the sweep returns:
+Counterpart of both TPU kernels of ``tissue_analysis_tpu/ops/pallas_block.py``,
+which compute one per-block contract:
+
+- kernel-v2, ``_kernel_factory_v2``: the default block (8, 16, 128) with
+  fewer than 2¹⁶ labels;
+- kernel-v1, ``_kernel_factory``: any block shape and any label count, so
+  every 2D image (lifted to ``[1, Y, X]``, block (1, 128, 128)) and every
+  label space with n ≥ 2¹⁶ (int32 labels).
+
+One hand-written kernel takes the block shape and the label width (uint16
+or int32) at run time and serves both. For every block of shape ``block``
+(z-major block order, ragged far edges allowed) the sweep returns:
 
 - ``ids``   int32 [B, L]      slot labels ascending, IMAX in empty slots;
   the dictionary holds the labels < n of the block's voxels and of the +1
