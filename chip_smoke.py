@@ -27,7 +27,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
 8. the 3D facade at 512³ on the card against the same facade on the plain
    engine, and ``neighbors(connectivity=3)`` with its time and peak memory;
 9. ``analyze_raw`` at 512³ (no host relabel) against ``analyze``, with the
-   stages of both.
+   stages of both;
+10. a dictionary past shared memory: ``grid_stack((256, 256, 512), (4, 4,
+    4))``, 524,288 labels in int32, through the retries 32 → 64 → 128 →
+    256 → 512 (the last two on the kernel's global face path), against
+    closed-form counts and walls and the plain engine; kernel at L = 512
+    against the plain version, and both timed;
+11. a time series at BASELINE config 5's size: three 512³ Voronoi frames
+    (seeds 1, 2, 3; frames 2 and 3 are generated in two worker processes
+    while phase 3 generates frame 1), lineages by max overlap of
+    consecutive frames computed on the card, ``analyze_series`` and
+    ``temporal_graph_from_images`` on the card against ``analyze_stack``
+    per frame and the temporal graph built on the plain engine; the series
+    timed against a sequential loop;
+12. streaming: the 512³ stack at ``slab_z=128``, and ``TiledSource``
+    2×2×2 of it (1024³, 16,241 labels, 113,408 walls), each against the
+    plain engine streamed over the same slabs and against the resident
+    table of the materialised stack, with times, stages and peak device
+    memory of both.
 
 Every path is driven with the launch count set to 0 just before it and read
 just after. The last lines are a JSON record of the kernels, the
@@ -38,9 +55,11 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 SIZE = 512
 NCELLS = 3500
@@ -55,6 +74,20 @@ EXPECT_PAIRS_GRID = 3 * (SIZE // GRID_CELL) ** 2 * (SIZE // GRID_CELL - 1)
 # a default block holds 1x2x16 grid cells plus 50 past its far faces: 82
 # dictionary labels, so L doubles 32 -> 64 -> 128 (three sweeps)
 EXPECT_GRID_LAUNCHES, EXPECT_GRID_L = 3, 128
+GRID4_SHAPE, GRID4_CELL = (256, 256, 512), 4
+_G4 = tuple(s // GRID4_CELL for s in GRID4_SHAPE)
+EXPECT_LABELS_GRID4 = _G4[0] * _G4[1] * _G4[2]  # 524,288
+EXPECT_PAIRS_GRID4 = (
+    (_G4[0] - 1) * _G4[1] * _G4[2] + _G4[0] * (_G4[1] - 1) * _G4[2]
+    + _G4[0] * _G4[1] * (_G4[2] - 1)
+)
+# a default block holds 2x4x32 cells plus 200 past its far faces: 456
+# dictionary labels, so L doubles 32 -> ... -> 512 (five sweeps)
+EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L = 5, 512
+SERIES_SEEDS = (2, 3)  # frames after the seed-1 stack
+SLAB_Z = 128
+TILES = (2, 2, 2)
+EXPECT_LABELS_TILED, EXPECT_PAIRS_TILED = 16241, 113408
 FIELDS = (
     "ids", "count", "s1", "s2", "cmin", "cmax",
     "pair_lo", "pair_hi", "wall_face_counts", "margin",
@@ -84,22 +117,34 @@ def best_of(fn, reps: int = 5, warmup: int = 2) -> float:
     return best
 
 
-def compare_sweeps(k, r) -> int:
-    """torch.equal on every output; returns the max abs difference (0)."""
+def max_abs_diff(a, b) -> int:
+    """max |a - b| over two integer tensors of one shape, in int64, taken in
+    chunks of 2^27 elements (faces reach 6.4 GB at grid4's L = 512)."""
     import torch
 
+    a, b = a.reshape(-1), b.reshape(-1)
+    m = torch.zeros((), dtype=torch.int64, device=a.device)
+    step = 1 << 27
+    for i in range(0, a.numel(), step):
+        d = a[i:i + step].to(torch.int64) - b[i:i + step].to(torch.int64)
+        m = torch.maximum(m, d.abs_().max())
+    return int(m)
+
+
+def compare_sweeps(k, r) -> int:
+    """The max abs difference over every kernel output and its plain
+    version's; raises unless it is 0."""
     if bool(r.ovf.any()):
         raise AssertionError("dictionary overflow in a comparison case")
-    err = 0
+    diffs = {}
     for name in k._fields:
         a, b = getattr(k, name), getattr(r, name)
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"{name}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
-        diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
-        err = max(err, diff)
-        if not torch.equal(a, b):
-            raise AssertionError(f"kernel and plain version differ in {name} (max |diff| {diff})")
-    return err
+        diffs[name] = max_abs_diff(a, b)
+    if any(diffs.values()):
+        raise AssertionError(f"kernel and plain version differ (max |diff| per output {diffs})")
+    return max(diffs.values())
 
 
 def tables_equal(a, b, what: str) -> None:
@@ -313,6 +358,278 @@ def phase_raw(img, log_prefix="[9]"):
     return launches
 
 
+def same_value(a, b) -> bool:
+    """Exact equality of property values (dicts, sequences, arrays)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_value(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and all(
+            same_value(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def graphs_equal(a, b, what: str) -> None:
+    """Vertices, edges (with their ends) and every property of two graphs."""
+    if list(a.vertices()) != list(b.vertices()) or list(a.edges()) != list(b.edges()):
+        raise AssertionError(f"{what}: vertices or edges differ")
+    if any(a.edge_vertices(e) != b.edge_vertices(e) for e in a.edges()):
+        raise AssertionError(f"{what}: edge ends differ")
+    for kind in ("vertex", "edge", "graph"):
+        names = getattr(a, f"{kind}_property_names")()
+        if sorted(names) != sorted(getattr(b, f"{kind}_property_names")()):
+            raise AssertionError(f"{what}: {kind} property names differ")
+        for name in names:
+            if not same_value(getattr(a, f"{kind}_property")(name),
+                              getattr(b, f"{kind}_property")(name)):
+                raise AssertionError(f"{what}: {kind} property {name} differs")
+
+
+def phase_grid4(log_prefix="[10]"):
+    """524,288 labels: a dictionary past the shared-memory face matrix."""
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+    from tissue_analysis_tpu_torch.engine import _GOOD_L, analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import (
+        DEFAULT_BLOCK, block_sweep, block_sweep_reference, build_kernel,
+    )
+    from tissue_analysis_tpu_torch.utils import timing
+
+    img = grid_stack(GRID4_SHAPE, (GRID4_CELL,) * 3)
+    stack = LabeledStack.from_array(img, background=None, device="cuda")
+    n = stack.n_labels
+    if n != EXPECT_LABELS_GRID4 or stack.dense.dtype != (
+        torch.int32 if n > 0xFFFF else torch.uint16
+    ):
+        raise AssertionError(f"grid4: {n} labels in {stack.dense.dtype}")
+    key = (stack.shape, n, DEFAULT_BLOCK, 32)
+    _GOOD_L.pop(key, None)
+    block_sweep.launches = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    table = analyze_stack(stack)
+    sync()
+    launches = block_sweep.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    L = _GOOD_L[key]
+    if (launches, L) != (EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L):
+        raise AssertionError(
+            f"grid4: expected {EXPECT_GRID4_LAUNCHES} launches up to L={EXPECT_GRID4_L}, "
+            f"got {launches} up to L={L}"
+        )
+    if not build_kernel().ta_block_sweep_smem_bytes(L, 0) > 232448:
+        raise AssertionError(f"grid4: L={L} does not take the global face path")
+    cell3 = GRID4_CELL ** 3
+    if not np.all(table.count == cell3):
+        raise AssertionError(f"grid4: a cell's voxel count is not {cell3}")
+    if table.n_pairs != EXPECT_PAIRS_GRID4:
+        raise AssertionError(f"grid4: {table.n_pairs} walls, expected {EXPECT_PAIRS_GRID4}")
+    if not np.all(table.wall_face_counts.sum(axis=1) == GRID4_CELL ** 2):
+        raise AssertionError("grid4: a wall's face total is not 16")
+    tables_equal(analyze_stack(stack, engine="torch"), table, "grid4 cuda vs plain table")
+    dense = stack.dense
+    err = compare_sweeps(
+        block_sweep(dense, n, DEFAULT_BLOCK, L), block_sweep_reference(dense, n, DEFAULT_BLOCK, L)
+    )
+    t_k = best_of(lambda: block_sweep(dense, n, DEFAULT_BLOCK, L))
+    t_p = best_of(lambda: block_sweep_reference(dense, n, DEFAULT_BLOCK, L), reps=3, warmup=1)
+    t_an = best_of(lambda: analyze_stack(stack))
+    with timing.collect() as stages:
+        analyze_stack(stack)
+    log(f"{log_prefix} grid {GRID4_SHAPE} cell {GRID4_CELL}^3: {launches} kernel launches "
+        f"(up to L={L}, global face path), {n} labels {str(dense.dtype)[6:]}, "
+        f"{table.n_pairs} walls, every "
+        f"count {cell3}, every wall 16 faces; table == plain engine's; kernel at L={L} "
+        f"== plain version (max |diff| {err}); the first analyze_stack took "
+        f"{peak / 2**30:.2f} GiB of device memory at its peak (above the stack)")
+    log(f"{log_prefix} grid4 kernel L={L} {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms; "
+        f"analyze_stack (cuda, converged L) {t_an * 1e3:.3f} ms")
+    log(f"{log_prefix} stages of one grid4 analyze_stack: {stages_line(stages)}")
+    return launches, err, t_k, t_p
+
+
+def _voronoi_frame(shape, ncells: int, seed: int):
+    """One series frame (run in a worker process)."""
+    import numpy as np
+
+    from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack
+
+    t0 = time.perf_counter()
+    img = np.asarray(voronoi_stack(shape, ncells, seed=seed))
+    return img, time.perf_counter() - t0
+
+
+def max_overlap_lineage(a, b, background: int = 1) -> dict:
+    """{mother: [daughters]}: each label of frame b (not the background)
+    descends from the label of frame a it overlaps most (ties: the smaller
+    label), computed on the card."""
+    import numpy as np
+    import torch
+
+    ta = torch.from_numpy(np.asarray(a).astype(np.int64)).cuda().reshape(-1)
+    tb = torch.from_numpy(np.asarray(b).astype(np.int64)).cuda().reshape(-1)
+    keep = (ta != background) & (tb != background)
+    nb = int(tb.max()) + 1
+    keys, cnt = torch.unique(ta[keep] * nb + tb[keep], return_counts=True)
+    mother, daughter = keys // nb, keys % nb
+    order = torch.argsort(mother, stable=True)
+    order = order[torch.argsort(-cnt[order], stable=True)]
+    order = order[torch.argsort(daughter[order], stable=True)]
+    d, m = daughter[order], mother[order]
+    first = torch.ones_like(d, dtype=torch.bool)
+    first[1:] = d[1:] != d[:-1]
+    out: dict = {}
+    for mo, da in zip(m[first].tolist(), d[first].tolist()):
+        out.setdefault(int(mo), []).append(int(da))
+    return out
+
+
+def phase_series(frames, t_gens, log_prefix="[11]"):
+    """Three 512³ frames through analyze_series and the temporal graph."""
+    from tissue_analysis_tpu_torch import TemporalPropertyGraph, graph_from_table
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.engine import analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+    from tissue_analysis_tpu_torch.series import analyze_series, temporal_graph_from_images
+    from tissue_analysis_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    lineages = [max_overlap_lineage(a, b) for a, b in zip(frames, frames[1:])]
+    sync()
+    t_lin = time.perf_counter() - t0
+    block_sweep.launches = 0
+    tables = analyze_series(frames, background=1, devices=["cuda"])
+    sync()
+    launches = block_sweep.launches
+    if launches < len(frames):
+        raise AssertionError(f"series: {launches} kernel launches for {len(frames)} frames")
+    for i, (img, t) in enumerate(zip(frames, tables)):
+        ref = analyze_stack(LabeledStack.from_array(img, background=1, device="cuda"))
+        tables_equal(ref, t, f"series frame {i} vs analyze_stack")
+    block_sweep.launches = 0
+    tpg = temporal_graph_from_images(frames, lineages, background=1, devices=["cuda"])
+    sync()
+    launches_tpg = block_sweep.launches
+    if launches_tpg < len(frames):
+        raise AssertionError("temporal_graph_from_images did not launch the kernel per frame")
+    plain_graphs = [
+        graph_from_table(analyze_stack(
+            LabeledStack.from_array(img, background=1, device="cuda"), engine="torch"),
+            background=1)
+        for img in frames
+    ]
+    plain = TemporalPropertyGraph().extend(plain_graphs, lineages)
+    graphs_equal(tpg, plain, "temporal graph cuda vs plain")
+    et = tpg.edge_property("edge_type")
+    n_lineage = sum(1 for e in tpg.edges() if et[e] == "t")
+    if n_lineage != sum(len(d) for m in lineages for d in m.values()):
+        raise AssertionError(f"temporal graph: {n_lineage} lineage edges")
+
+    def sequential():
+        return [analyze_stack(LabeledStack.from_array(img, background=1, device="cuda"))
+                for img in frames]
+
+    t_series = best_of(lambda: analyze_series(frames, background=1, devices=["cuda"]),
+                       reps=3, warmup=1)
+    t_seq = best_of(sequential, reps=3, warmup=1)
+    with timing.collect() as stages:
+        analyze_series(frames, background=1, devices=["cuda"])
+    labels = [t.n_labels for t in tables]
+    log(f"{log_prefix} series of {len(frames)} {SIZE}^3 frames: {launches} kernel launch(es), "
+        f"labels {labels}; every frame == analyze_stack; temporal graph "
+        f"{tpg.nb_vertices()} vertices / {tpg.nb_edges()} edges ({n_lineage} lineage) == "
+        f"plain engine's ({launches_tpg} launches)")
+    log(f"{log_prefix} analyze_series (dispatch/collect) {t_series * 1e3:.3f} ms vs sequential "
+        f"loop {t_seq * 1e3:.3f} ms; lineages on the card {t_lin * 1e3:.3f} ms; frames "
+        f"generated in {', '.join(f'{g:.1f}' for g in t_gens)} s")
+    log(f"{log_prefix} stages of one analyze_series: {stages_line(stages)}")
+    return launches
+
+
+def phase_stream(img, log_prefix="[12]"):
+    """Streamed 512³ and 1024³ against resident tables."""
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.engine import analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+    from tissue_analysis_tpu_torch.streaming import TiledSource, analyze_streamed
+    from tissue_analysis_tpu_torch.utils import timing
+
+    def run(fn):
+        """(result, seconds, peak device bytes above those allocated before,
+        stages) of one call; each stage is fenced, so the time includes the
+        fences."""
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with timing.collect() as st:
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            dt = time.perf_counter() - t0
+        return out, dt, torch.cuda.max_memory_allocated() - base, st
+
+    def stage_sums(st) -> str:
+        sums: dict = {}
+        for s in st.stages:
+            sums[s.name] = sums.get(s.name, 0.0) + s.seconds
+        return "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in sums.items())
+
+    launches = {}
+    results = []
+    src = TiledSource(np.asarray(img), TILES, background=1)
+    for name, source, materialize in (
+        (f"{SIZE}^3", np.asarray(img), lambda: np.asarray(img)),
+        (f"{SIZE * TILES[0]}^3 tiled", src, lambda: src.read(0, src.shape[0])),
+    ):
+        block_sweep.launches = 0
+        streamed, t_s, peak_s, st_s = run(
+            lambda: analyze_streamed(source, background=1, slab_z=SLAB_Z, device="cuda"))
+        launches[name] = block_sweep.launches
+        slabs = -(-source.shape[0] // SLAB_Z)
+        if launches[name] < slabs:
+            raise AssertionError(f"stream {name}: {launches[name]} launches for {slabs} slabs")
+        # the plain version on the same slabs: the kernel at this path's
+        # shapes (X = 1024 and n = 16,241 for the tiled source)
+        plain, t_p, _, _ = run(lambda: analyze_streamed(
+            source, background=1, slab_z=SLAB_Z, engine="torch", device="cuda"))
+        tables_equal(plain, streamed, f"stream {name} kernel vs plain engine")
+        del plain
+        t0 = time.perf_counter()
+        full = materialize()
+        t_mat = time.perf_counter() - t0
+        resident, t_r, peak_r, st_r = run(
+            lambda: analyze_stack(LabeledStack.from_array(full, background=1, device="cuda")))
+        tables_equal(resident, streamed, f"stream {name} vs resident")
+        results.append((name, streamed, t_s, peak_s, st_s, t_r, peak_r, st_r, t_mat, slabs, t_p))
+        del full, resident
+    tiled = results[1][1]
+    if (tiled.n_labels, tiled.n_pairs) != (EXPECT_LABELS_TILED, EXPECT_PAIRS_TILED):
+        raise AssertionError(
+            f"tiled: expected {EXPECT_LABELS_TILED} labels / {EXPECT_PAIRS_TILED} walls, got "
+            f"{tiled.n_labels} / {tiled.n_pairs}")
+    for name, t, t_s, peak_s, st_s, t_r, peak_r, st_r, t_mat, slabs, t_p in results:
+        log(f"{log_prefix} stream {name} slab_z={SLAB_Z} ({slabs} slabs, "
+            f"{launches[name]} launches): {t.n_labels} labels, {t.n_pairs} walls, table == "
+            f"the plain engine streamed and == resident; streamed {t_s * 1e3:.3f} ms (plain "
+            f"engine {t_p * 1e3:.3f} ms), peak device memory {peak_s / 2**30:.3f} GiB; resident (relabel + H2D + analyze) {t_r * 1e3:.3f} ms, peak "
+            f"{peak_r / 2**30:.3f} GiB (stack materialised in {t_mat:.1f} s; peaks are "
+            f"above what earlier phases left allocated)")
+        log(f"{log_prefix} stages, streamed {name}: {stage_sums(st_s)}")
+        log(f"{log_prefix} stages, resident {name}: {stage_sums(st_r)}")
+    return sum(launches.values())
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -320,7 +637,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    # the series frames after the first are generated in worker processes
+    # while this one generates the first
+    pool = ProcessPoolExecutor(
+        max_workers=len(SERIES_SEEDS), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(_voronoi_frame, (SIZE,) * 3, NCELLS, seed)
+                   for seed in SERIES_SEEDS]
+        return run_phases(futures)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
+
+def run_phases(futures) -> int:
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch.core.spatial_image import SpatialImage
     from tissue_analysis_tpu_torch.core.stack import LabeledStack
     from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack
     from tissue_analysis_tpu_torch.engine import analyze_stack
@@ -350,6 +683,10 @@ def main() -> int:
     t0 = time.perf_counter()
     img = voronoi_stack((SIZE,) * 3, NCELLS, seed=SEED)
     t_gen = time.perf_counter() - t0
+    # wait for the other frames before anything is timed: receiving one
+    # (268 MB unpickled in the executor's thread) holds the interpreter lock
+    done = [f.result() for f in futures]
+    t_wait = time.perf_counter() - t0 - t_gen
     small = voronoi_stack((64,) * 3, 150, seed=0)
     st64 = LabeledStack.from_array(small, background=1, device="cuda")
     max_err = compare_sweeps(
@@ -369,7 +706,8 @@ def main() -> int:
     sync()
     log(f"[3] kernel == plain version on the card: 64^3, {SIZE}^3 uint16, "
         f"{SIZE}^3 int32 (max |diff| {max_err}); 64^3 table cuda == cpu "
-        f"(stack generated in {t_gen:.1f} s)")
+        f"(stack generated in {t_gen:.1f} s, then {t_wait:.1f} s waiting for the "
+        f"other series frames)")
 
     # ---- 4. the main path at full size, through the kernel
     block_sweep.launches = 0
@@ -437,6 +775,13 @@ def main() -> int:
     phase_facade_3d(img)
     phase_raw(img)
 
+    # ---- 10-12. past the shared-memory dictionary, time series, streaming
+    lg4, eg4, kg4, pg4 = phase_grid4()
+    frames = [img] + [SpatialImage(a) for a, _ in done]
+    l_series = phase_series(frames, [t_gen] + [t for _, t in done])
+    del frames, done
+    l_stream = phase_stream(img)
+
     src = "tissue_analysis_tpu_torch/csrc/block_sweep.cu"
     print(json.dumps({"kernels": [{
         "name": "block_sweep",
@@ -447,21 +792,27 @@ def main() -> int:
         "max_abs_err": float(max_err),
         "ms": t_kernel * 1e3,
         "plain_ms": t_plain * 1e3,
+        # the same contract on the series frames and the streamed slabs
+        "launches_series": l_series,
+        "launches_stream": l_stream,
     }, {
-        # kernel-v1's contract: the 2D lift and the int32 label space; the
-        # times are the sums over the 4096^2 image and the grid 512^3 stack
+        # kernel-v1's contract: the 2D lift and the int32 label space; ms
+        # and plain_ms are the sums over the 4096^2 image and the grid8
+        # 512^3 stack (as before the grid4 case), launches count all three
         "name": "block_sweep (kernel-v1 contract: 2D block 1x128x128, n >= 2^16)",
         "route": "cuda",
         "source": src,
         "replaces": "tissue_analysis_tpu/ops/pallas_block.py:678",
-        "launches": l2d + lgr,
-        "max_abs_err": float(max(e2d, egr)),
+        "launches": l2d + lgr + lg4,
+        "max_abs_err": float(max(e2d, egr, eg4)),
         "ms": (k2d + kgr) * 1e3,
         "plain_ms": (p2d + pgr) * 1e3,
         "ms_2d": k2d * 1e3,
         "plain_ms_2d": p2d * 1e3,
         "ms_grid8": kgr * 1e3,
         "plain_ms_grid8": pgr * 1e3,
+        "ms_grid4": kg4 * 1e3,
+        "plain_ms_grid4": pg4 * 1e3,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

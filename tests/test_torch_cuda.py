@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from tissue_analysis_tpu_torch import engine  # noqa: E402
 from tissue_analysis_tpu_torch.core.stack import LabeledStack  # noqa: E402
 from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack  # noqa: E402
+from tissue_analysis_tpu_torch.ops import block_sweep as bs  # noqa: E402
 from tissue_analysis_tpu_torch.ops.block_sweep import (  # noqa: E402
     block_sweep,
     block_sweep_reference,
@@ -192,3 +193,107 @@ def test_facade_cuda_equals_cpu(dev, shape, ncells):
     np.testing.assert_array_equal(
         np.asarray(hollow_out_cells(img, 1)), np.asarray(hollow_out_cells(img, 1, device=dev))
     )
+
+
+def _grid4(dev):
+    """4³-voxel cells: ~456 dictionary labels per default block (L = 512)."""
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+
+    return LabeledStack.from_array(grid_stack((32, 64, 256), (4, 4, 4)), device=dev)
+
+
+@pytest.mark.parametrize("L", [256, 512])
+def test_kernel_global_face_path_equals_plain_version(dev, L):
+    """Past ~135 the face matrix no longer fits shared memory: the kernel
+    adds into a zeroed device buffer instead. At L = 256 the densest blocks
+    overflow, and the rest must still match."""
+    st = _grid4(dev)
+    assert bs.build_kernel().ta_block_sweep_smem_bytes(L, 0) > bs._MAX_SMEM
+    k = block_sweep(st.dense, st.n_labels, (8, 16, 128), L)
+    torch.cuda.synchronize()
+    r = block_sweep_reference(st.dense, st.n_labels, (8, 16, 128), L)
+    _assert_sweeps_equal(k, r)
+    assert bool(k.ovf.any()) == (L == 256)
+
+
+@pytest.mark.parametrize("shape,ncells,dtype", [
+    ((64, 64, 64), 150, torch.uint16), ((24, 40, 130), 45, torch.int32),
+])
+def test_kernel_global_face_path_at_small_L(dev, shape, ncells, dtype):
+    """The global face path forced where the shared one would serve."""
+    st = _stack(shape, ncells, 0, dev)
+    dense = st.dense.to(dtype)
+    k = bs._launch(bs.build_kernel(), dense, st.n_labels, (8, 16, 128), 32, True)
+    torch.cuda.synchronize()
+    _assert_sweeps_equal(k, block_sweep_reference(dense, st.n_labels, (8, 16, 128), 32))
+
+
+def test_engine_cuda_past_the_shared_memory_bound(dev):
+    """This call raised ValueError ("shared-memory bound") while the face
+    matrix had to fit shared memory; it now converges at L = 512."""
+    st = _grid4(dev)
+    engine._GOOD_L.pop((st.shape, st.n_labels, (8, 16, 128), 32), None)
+    before = block_sweep.launches
+    gpu = engine.analyze_stack(st, engine="cuda")
+    assert block_sweep.launches - before == 5
+    assert engine._GOOD_L[(st.shape, st.n_labels, (8, 16, 128), 32)] == 512
+    plain = engine.analyze_stack(st, engine="torch")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(plain, f), getattr(gpu, f), err_msg=f)
+    assert np.all(gpu.count == 64) and np.all(gpu.wall_face_counts.sum(axis=1) == 16)
+
+
+def test_face_buffer_past_device_memory_raises_value_error(dev):
+    """A 300 GB face buffer: the allocator's out-of-memory error comes out
+    as a ValueError naming the bytes and the block, and the card is usable
+    after it."""
+    with pytest.raises(ValueError, match=r"100000 blocks of \(8, 16, 128\) at L=512 need "
+                                         r"314,572,800,000 bytes"):
+        bs._faces_buffer(100000, 512, (8, 16, 128), dev)
+    st = _grid4(dev)
+    k = block_sweep(st.dense, st.n_labels, (8, 16, 128), 512)
+    torch.cuda.synchronize()
+    assert not bool(k.ovf.any())
+
+
+def test_series_cuda_equals_cpu(dev):
+    from tissue_analysis_tpu_torch.series import analyze_series
+
+    frames = [voronoi_stack((64, 64, 64), nc, seed=s) for nc, s in ((90, 4), (120, 5))]
+    cpu = analyze_series(frames, background=1)
+    before = block_sweep.launches
+    gpu = analyze_series(frames, background=1, devices=[dev])
+    assert block_sweep.launches - before >= 2
+    for c, g in zip(cpu, gpu):
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(c, f), getattr(g, f), err_msg=f)
+
+
+def test_series_longer_than_its_window_cuda_equals_cpu(dev):
+    """Five frames on one card: more than the two it keeps in flight."""
+    from tissue_analysis_tpu_torch.series import analyze_series
+
+    frames = [voronoi_stack((64, 64, 64), 60 + 20 * s, seed=s) for s in range(5)]
+    cpu = analyze_series(frames, background=1)
+    before = block_sweep.launches
+    gpu = analyze_series(frames, background=1, devices=[dev])
+    assert block_sweep.launches - before >= 5
+    assert len(gpu) == 5
+    for c, g in zip(cpu, gpu):
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(c, f), getattr(g, f), err_msg=f)
+
+
+@pytest.mark.parametrize("slab_z", [16, 40])
+def test_streamed_cuda_equals_cpu(dev, slab_z):
+    from tissue_analysis_tpu_torch.streaming import analyze_streamed
+
+    img = np.asarray(voronoi_stack((64, 64, 64), 90, seed=4))
+    cpu = analyze_streamed(img, background=1, slab_z=slab_z)
+    before = block_sweep.launches
+    gpu = analyze_streamed(img, background=1, slab_z=slab_z, device=dev)
+    assert block_sweep.launches - before == -(-64 // slab_z)
+    resident = engine.analyze_stack(LabeledStack.from_array(img, background=1, device=dev))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(cpu, f), getattr(gpu, f), err_msg=f)
+        np.testing.assert_array_equal(getattr(resident, f), getattr(gpu, f), err_msg=f)

@@ -46,6 +46,15 @@ def test_port_runs_with_jax_blocked():
         a = A.SpatialImageAnalysis(voronoi_stack((24, 20), 8, seed=1), background=1)
         assert a.nb_labels() > 2 and len(a.neighbors(connectivity=2)) > 2
         assert A.hollow_out_cells(img, background=1).shape == img.shape
+        import tissue_analysis_tpu_torch.graph.temporal  # noqa: F401
+        import tissue_analysis_tpu_torch.ops.seam  # noqa: F401
+        from tissue_analysis_tpu_torch.oracle import ScipyOracle
+        assert ScipyOracle(img, background=1).volume()[1] > 0
+        s = T.analyze_streamed(img, background=1, slab_z=5)
+        assert np.array_equal(s.pair_lo, t.pair_lo) and np.array_equal(s.s2, t.s2)
+        tpg = T.temporal_graph_from_images([img, img], [{2: [2]}], background=1)
+        assert tpg.graph_property("nb_time_points") == 2
+        assert T.temporal_change(tpg, "volume", rank=1)
         leaked = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "tissue_analysis_tpu")

@@ -11,7 +11,10 @@ A segmented 2D or 3D image is relabeled on the host
 :class:`FeatureTable`, and exported as a cell property graph
 (:func:`graph_from_table`). :func:`analyze_raw` skips the host relabel.
 The reference-compatible facade :func:`SpatialImageAnalysis` serves every
-per-cell query from that one table.
+per-cell query from that one table. Time series go through
+:func:`analyze_series` and :func:`temporal_graph_from_images` (lineage
+analysis in ``graph.temporal``); stacks larger than device memory stream
+through :func:`analyze_streamed` one z-slab at a time.
 """
 
 from tissue_analysis_tpu_torch.core.spatial_image import (  # noqa: F401
@@ -40,8 +43,33 @@ from tissue_analysis_tpu_torch.analysis import (  # noqa: F401
 from tissue_analysis_tpu_torch.graph import (  # noqa: F401
     PropertyGraph,
     TemporalPropertyGraph,
+    dividing_cells,
+    division_asymmetry,
+    division_events,
+    division_rate,
+    exist_all_relative_at_rank,
+    exist_relative_at_rank,
     graph_from_image,
     graph_from_table,
+    lineage_vertices,
+    lineage_volumes,
+    nb_descendants,
+    per_lineage_aggregate,
+    relative_temporal_change,
+    sibling_cells,
+    temporal_change,
+    temporal_rate,
+    time_point_property,
+)
+from tissue_analysis_tpu_torch.streaming import (  # noqa: F401
+    ArraySource,
+    TiledSource,
+    analyze_streamed,
+)
+from tissue_analysis_tpu_torch.series import (  # noqa: F401
+    analyze_series,
+    graph_series,
+    temporal_graph_from_images,
 )
 
 __version__ = "0.1.0"

@@ -22,7 +22,7 @@ import numpy as np
 
 from tissue_analysis_tpu_torch.core.spatial_image import SpatialImage
 from tissue_analysis_tpu_torch.core.stack import LabeledStack, resolve_device
-from tissue_analysis_tpu_torch.engine import analyze_stack
+from tissue_analysis_tpu_torch.engine import analyze_stack, resolve_engine
 from tissue_analysis_tpu_torch.features.table import FeatureTable
 from tissue_analysis_tpu_torch.ops import stencil
 
@@ -58,26 +58,6 @@ class AnalysisConfig:
     connectivity: int = 1
     # 'auto' | 'cuda' | 'torch', or the JAX package's names for them
     engine: str = "auto"
-
-
-# the JAX package's engine names → the port's (``engine.ENGINES``)
-_ENGINE_NAMES = {
-    "auto": "auto",
-    "cuda": "cuda",
-    "torch": "torch",
-    "pallas": "cuda",
-    "blocked": "torch",
-    "chunked": "torch",
-}
-
-
-def resolve_engine(name: str) -> str:
-    """Map an engine name (port or JAX package) to the port's engine."""
-    if name not in _ENGINE_NAMES:
-        raise ValueError(
-            f"unknown engine {name!r}; expected one of {sorted(_ENGINE_NAMES)}"
-        )
-    return _ENGINE_NAMES[name]
 
 
 # sentinel distinguishing "background not passed" from an explicit value

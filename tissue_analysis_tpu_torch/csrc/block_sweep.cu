@@ -36,10 +36,22 @@
 // contention of shared-memory atomics on the few hot slots of a block (a
 // warp's lanes mostly share one label). This first design does nothing
 // about that yet beyond caching the last hash lookup per thread;
-// warp-aggregated atomics are later work. Dense label spaces need a large
-// dictionary: the [L, 3L] face matrix sits in shared memory, so L = 128
-// takes ~207 KB and one block per SM, and L above ~135 does not fit (the
-// wrapper raises). The rank step is O(H^2 / threads), H = 2L at L >= 32.
+// warp-aggregated atomics are later work.
+//
+// Two face paths, picked at launch (template flag kFacesGlobal):
+//   - shared: the [L, 3L] face matrix sits in shared memory and is copied
+//     out once. L = 128 takes ~207 KB and one block per SM; L above ~135
+//     does not fit.
+//   - global: for such L the face atomics go straight to the block's own
+//     [L, 3L] slice of faces_out, which the caller zeroes first. Shared
+//     memory then holds only the hash, the local moments and the bbox
+//     (2H + 16L + 2 ints), which fits up to L ~ 2600. Dense label spaces
+//     (4^3-voxel cells: ~456 dictionary labels per 8x16x128 block) take
+//     this path; its cost is the dense B * 3L^2 face output itself.
+// The rank step is O(H^2 / threads), H = 2L rounded up to a power of two:
+// at L = 512 that is 1024^2 / 512 = 2,048 compares a thread; at L = 2048
+// (H = 4096) 32,768, which is what bounds the global path in time before
+// shared memory bounds it in size.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -104,7 +116,7 @@ __device__ __forceinline__ bool live(int v, int n) {
   return static_cast<unsigned>(v) < static_cast<unsigned>(n);
 }
 
-template <typename T>
+template <typename T, bool kFacesGlobal>
 __global__ void __launch_bounds__(kThreads)
 block_sweep_kernel(const T* __restrict__ dense, Params p,
                    int* __restrict__ ids_out, long long* __restrict__ mom_out,
@@ -119,12 +131,14 @@ block_sweep_kernel(const T* __restrict__ dense, Params p,
   int* acc = hslot + H;         // [L, 10] local moments
   int* bmin = acc + 10 * L;     // [L, 3]
   int* bmax = bmin + 3 * L;     // [L, 3]
-  int* fc = bmax + 3 * L;       // [L, 3L]
-  int* misc = fc + 3 * L * L;   // ndistinct, full
+  const int64_t b = blockIdx.x;
+  // [L, 3L] face counts: shared, or this block's slice of faces_out
+  int* fc = kFacesGlobal ? faces_out + b * 3 * L * L : bmax + 3 * L;
+  // ndistinct, full
+  int* misc = kFacesGlobal ? bmax + 3 * L : bmax + 3 * L + 3 * L * L;
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int64_t b = blockIdx.x;
   const int bxi = static_cast<int>(b % p.gx);
   const int byi = static_cast<int>((b / p.gx) % p.gy);
   const int bzi = static_cast<int>(b / (static_cast<int64_t>(p.gx) * p.gy));
@@ -143,7 +157,9 @@ block_sweep_kernel(const T* __restrict__ dense, Params p,
     bmin[i] = kIMax;
     bmax[i] = -1;
   }
-  for (int i = tid; i < 3 * L * L; i += nt) fc[i] = 0;
+  if (!kFacesGlobal) {
+    for (int i = tid; i < 3 * L * L; i += nt) fc[i] = 0;
+  }
   if (tid == 0) {
     misc[0] = 0;
     misc[1] = 0;
@@ -300,8 +316,10 @@ block_sweep_kernel(const T* __restrict__ dense, Params p,
       gmax_out[(b * L + s) * 3 + d] = hi < 0 ? -1 : hi + static_cast<int>(o[d]);
     }
   }
-  int* fout = faces_out + b * 3 * L * L;
-  for (int i = tid; i < 3 * L * L; i += nt) fout[i] = fc[i];
+  if (!kFacesGlobal) {
+    int* fout = faces_out + b * 3 * L * L;
+    for (int i = tid; i < 3 * L * L; i += nt) fout[i] = fc[i];
+  }
 }
 
 int hash_bits(int L) {
@@ -310,25 +328,45 @@ int hash_bits(int L) {
   return bits;
 }
 
+template <typename T, bool kFacesGlobal>
+cudaError_t launch(const void* dense, const Params& p, unsigned B, size_t smem,
+                   cudaStream_t st, void* ids, void* mom, void* gmin,
+                   void* gmax, void* faces, void* ovf) {
+  cudaError_t err = cudaFuncSetAttribute(
+      block_sweep_kernel<T, kFacesGlobal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  block_sweep_kernel<T, kFacesGlobal><<<B, kThreads, smem, st>>>(
+      static_cast<const T*>(dense), p, static_cast<int*>(ids),
+      static_cast<long long*>(mom), static_cast<int*>(gmin),
+      static_cast<int*>(gmax), static_cast<int*>(faces),
+      static_cast<int*>(ovf));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory (bytes) one block needs at dictionary size L.
-long long ta_block_sweep_smem_bytes(int L) {
+// Dynamic shared memory (bytes) one block needs at dictionary size L, with
+// the face matrix in shared memory (faces_global == 0) or in faces_out.
+long long ta_block_sweep_smem_bytes(int L, int faces_global) {
   const long long H = 1LL << hash_bits(L);
-  return (2 * H + 16LL * L + 3LL * L * L + 2) * static_cast<long long>(sizeof(int));
+  const long long fc = faces_global ? 0 : 3LL * L * L;
+  return (2 * H + 16LL * L + fc + 2) * static_cast<long long>(sizeof(int));
 }
 
 // dense: [Z, Y, X] uint16 (is_int32 == 0) or int32, contiguous, on the device.
-// Outputs (allocated by the caller, every element written here):
+// Outputs (allocated by the caller; every element written here, except that
+// with faces_global != 0 the kernel adds into faces, which the caller must
+// have zeroed on the same stream):
 //   ids int32 [B, L], mom int64 [B, L, 10], gmin/gmax int32 [B, L, 3],
 //   faces int32 [B, L, 3L], ovf int32 [B].
 // Launches on `stream`, does not synchronise; returns cudaGetLastError().
 int ta_block_sweep(const void* dense, int is_int32, int Z, int Y, int X,
-                   int bz, int by, int bx, int L, int n, void* ids, void* mom,
-                   void* gmin, void* gmax, void* faces, void* ovf,
-                   void* stream) {
+                   int bz, int by, int bx, int L, int n, int faces_global,
+                   void* ids, void* mom, void* gmin, void* gmax, void* faces,
+                   void* ovf, void* stream) {
   Params p;
   p.Z = Z;
   p.Y = Y;
@@ -344,32 +382,25 @@ int ta_block_sweep(const void* dense, int is_int32, int Z, int Y, int X,
   p.hbits = hash_bits(L);
   const long long B = static_cast<long long>(gz) * p.gy * p.gx;
   if (B == 0) return 0;
-  const size_t smem = static_cast<size_t>(ta_block_sweep_smem_bytes(L));
+  const size_t smem =
+      static_cast<size_t>(ta_block_sweep_smem_bytes(L, faces_global));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = static_cast<unsigned>(B);
   cudaError_t err;
   if (is_int32) {
-    err = cudaFuncSetAttribute(block_sweep_kernel<int>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    block_sweep_kernel<int><<<static_cast<unsigned>(B), kThreads, smem, st>>>(
-        static_cast<const int*>(dense), p, static_cast<int*>(ids),
-        static_cast<long long*>(mom), static_cast<int*>(gmin),
-        static_cast<int*>(gmax), static_cast<int*>(faces),
-        static_cast<int*>(ovf));
+    err = faces_global
+              ? launch<int, true>(dense, p, nb, smem, st, ids, mom, gmin, gmax,
+                                  faces, ovf)
+              : launch<int, false>(dense, p, nb, smem, st, ids, mom, gmin,
+                                   gmax, faces, ovf);
   } else {
-    err = cudaFuncSetAttribute(block_sweep_kernel<unsigned short>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    block_sweep_kernel<unsigned short>
-        <<<static_cast<unsigned>(B), kThreads, smem, st>>>(
-            static_cast<const unsigned short*>(dense), p,
-            static_cast<int*>(ids), static_cast<long long*>(mom),
-            static_cast<int*>(gmin), static_cast<int*>(gmax),
-            static_cast<int*>(faces), static_cast<int*>(ovf));
+    err = faces_global
+              ? launch<unsigned short, true>(dense, p, nb, smem, st, ids, mom,
+                                             gmin, gmax, faces, ovf)
+              : launch<unsigned short, false>(dense, p, nb, smem, st, ids,
+                                              mom, gmin, gmax, faces, ovf);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -14,11 +14,16 @@ give bit-identical tables:
 ``engine="auto"`` picks ``"cuda"`` for a CUDA stack and ``"torch"`` for a
 CPU stack. Nothing falls back from one engine to another: a failing kernel
 raises.
+
+:func:`dispatch_stack` launches a sweep without waiting for the device and
+:func:`collect_stack` finishes it (overflow reruns, combine, readback), so a
+caller can relabel the next frame or slab while the card sweeps this one;
+:func:`analyze_stack` is the two in a row.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,17 +38,35 @@ from tissue_analysis_tpu_torch.features.table import FeatureTable
 from tissue_analysis_tpu_torch.ops import combine
 from tissue_analysis_tpu_torch.ops.block_sweep import (
     DEFAULT_BLOCK,
+    PLAIN_MAX_DICT,
+    SweepOut,
     block_sweep,
     block_sweep_reference,
+    max_dict_size,
 )
 from tissue_analysis_tpu_torch.utils import timing
 
-__all__ = ["analyze", "analyze_raw", "analyze_stack", "ENGINES"]
+__all__ = [
+    "analyze",
+    "analyze_raw",
+    "analyze_stack",
+    "collect_stack",
+    "dispatch_stack",
+    "resolve_engine",
+    "ENGINES",
+]
 
 ENGINES = ("auto", "cuda", "torch")
 
-#: dictionary-size doublings tried after an overflow before giving up
-MAX_DICT_RETRIES = 4
+# the JAX package's engine names → the port's (``ENGINES``)
+_ENGINE_NAMES = {
+    "auto": "auto",
+    "cuda": "cuda",
+    "torch": "torch",
+    "pallas": "cuda",
+    "blocked": "torch",
+    "chunked": "torch",
+}
 
 #: block of the lifted [1, Y, X] sweep of a 2D image (as the TPU engine's)
 BLOCK_2D = (1, 128, 128)
@@ -53,6 +76,15 @@ BLOCK_2D = (1, 128, 128)
 # block is part of the key: a [1, Y, X] stack and a lifted 2D image share
 # shape and n but not the block, nor the labels per block.
 _GOOD_L: dict = {}
+
+
+def resolve_engine(name: str) -> str:
+    """Map an engine name (port or JAX package) to the port's engine."""
+    if name not in _ENGINE_NAMES:
+        raise ValueError(
+            f"unknown engine {name!r}; expected one of {sorted(_ENGINE_NAMES)}"
+        )
+    return _ENGINE_NAMES[name]
 
 
 def _pick_sweep(stack: LabeledStack, engine: str):
@@ -70,60 +102,100 @@ def _pick_sweep(stack: LabeledStack, engine: str):
     return block_sweep_reference
 
 
+class Dispatched(NamedTuple):
+    """A launched sweep (:func:`dispatch_stack`) awaiting :func:`collect_stack`."""
+
+    stack: LabeledStack  # the swept stack ([1, Y, X] for a 2D image)
+    image: LabeledStack  # the stack as given
+    sweep: object
+    block: tuple
+    key: tuple
+    L: int
+    n_sweep: int
+    out: SweepOut
+
+
 def analyze_stack(
-    stack: LabeledStack, engine: str = "auto", L: int = 32
+    stack: LabeledStack, engine: str = "auto", L: int = 32,
+    n_bucket: Optional[int] = None,
 ) -> FeatureTable:
     """Labeled stack → FeatureTable in one fused device pass.
 
     ``L`` is the starting per-block dictionary size; a block with more
-    labels makes the sweep rerun with L doubled (at most
-    ``MAX_DICT_RETRIES`` times), and the converged size is remembered for
-    later stacks of the same shape, label count and block. A 2D stack is
-    swept as ``[1, Y, X]`` with block :data:`BLOCK_2D`."""
+    labels makes the sweep rerun with L doubled, up to the engine's bound
+    (:func:`~tissue_analysis_tpu_torch.ops.block_sweep.max_dict_size` for
+    the kernel), and the converged size is remembered for later stacks of
+    the same shape, label count and block. A 2D stack is swept as
+    ``[1, Y, X]`` with block :data:`BLOCK_2D`.
+
+    ``n_bucket`` sweeps a label space of ``max(n_labels, n_bucket)``; the
+    rows past ``n_labels`` stay empty and are sliced away on the device, so
+    the table equals the exact-n one. The reference buckets to share one
+    compilation across time-series frames; the port compiles nothing per
+    shape, so the bucket only keeps the reference's contract (and frames of
+    one bucket share a converged dictionary size)."""
+    return collect_stack(dispatch_stack(stack, engine, L, n_bucket))
+
+
+def dispatch_stack(
+    stack: LabeledStack, engine: str = "auto", L: int = 32,
+    n_bucket: Optional[int] = None,
+) -> Dispatched:
+    """Launch the sweep of ``stack`` at the converged dictionary size without
+    waiting for the device; :func:`collect_stack` finishes it."""
+    image = stack
     if stack.ndim == 2:
-        return _strip_z(_sweep_table(_lift_2d(stack), engine, L, BLOCK_2D), stack)
-    if stack.ndim != 3:
+        stack, block = _lift_2d(stack), BLOCK_2D
+    elif stack.ndim == 3:
+        block = DEFAULT_BLOCK
+    else:
         raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
-    return _sweep_table(stack, engine, L, DEFAULT_BLOCK)
-
-
-def _sweep_table(stack: LabeledStack, engine: str, L: int, block) -> FeatureTable:
     sweep = _pick_sweep(stack, engine)
     n = stack.n_labels
-    dev = stack.device
-    voxels = int(np.prod(stack.shape))
-    key = (stack.shape, n, tuple(block), int(L))
+    n_sweep = n if n_bucket is None else max(n, int(n_bucket))
+    key = (stack.shape, n_sweep, tuple(block), int(L))
     Lc = _GOOD_L.get(key, int(L))
-    for _attempt in range(MAX_DICT_RETRIES + 1):
-        with timing.stage("device sweep (block)", voxels, dev):
-            out = sweep(stack.dense, n, block, Lc)
-            overflow = bool(out.ovf.any())
-        if not overflow:
-            break
-        Lc *= 2
-    else:
-        raise RuntimeError(
-            f"per-block dictionary still overflows at L={Lc // 2}"
-        )
-    _GOOD_L[key] = Lc
+    with timing.stage("device sweep (block)", int(np.prod(stack.shape)), stack.device):
+        out = sweep(stack.dense, n_sweep, block, Lc)
+    return Dispatched(stack, image, sweep, block, key, Lc, n_sweep, out)
+
+
+def collect_stack(d: Dispatched) -> FeatureTable:
+    """Finish a dispatched sweep: rerun with L doubled while a block
+    overflows (``RuntimeError`` past the engine's bound), then combine,
+    reduce the pairs, read back and assemble the table."""
+    stack, out, Lc = d.stack, d.out, d.L
+    dev = stack.device
+    n, n_sweep = stack.n_labels, d.n_sweep
+    while bool(out.ovf.any()):
+        bound = max_dict_size() if d.sweep is block_sweep else PLAIN_MAX_DICT
+        if Lc >= bound:
+            raise RuntimeError(
+                f"per-block dictionary still overflows at L={Lc}, the largest "
+                f"this engine takes"
+            )
+        Lc = min(2 * Lc, bound)
+        with timing.stage("device sweep (block)", int(np.prod(stack.shape)), dev):
+            out = d.sweep(stack.dense, n_sweep, d.block, Lc)
+    _GOOD_L[d.key] = Lc
 
     with timing.stage("combine + pair reduce", None, dev):
         mom, cmin, cmax = combine.combine_moments(
-            out.ids, out.mom, out.gmin, out.gmax, n
+            out.ids, out.mom, out.gmin, out.gmax, n_sweep
         )
-        pkey, ptotal = combine.reduce_pairs(out.ids, out.faces, n)
+        pkey, ptotal = combine.reduce_pairs(out.ids, out.faces, n_sweep)
     with timing.stage("readback + host assemble"):
-        mom = mom.cpu().numpy()
-        cmin = cmin.cpu().numpy().astype(np.int64)
-        cmax = cmax.cpu().numpy().astype(np.int64)
+        mom = mom[:n].cpu().numpy()
+        cmin = cmin[:n].cpu().numpy().astype(np.int64)
+        cmax = cmax[:n].cpu().numpy().astype(np.int64)
         pair_lo, pair_hi, counts3 = combine.decode_pairs(
-            pkey.cpu().numpy(), ptotal.cpu().numpy(), n
+            pkey.cpu().numpy(), ptotal.cpu().numpy(), n_sweep
         )
     count = mom[:, 0].copy()
     empty = count == 0
     cmin[empty] = 0
     cmax[empty] = 0
-    return FeatureTable(
+    table = FeatureTable(
         ids=stack.ids.copy(),
         shape=stack.shape,
         voxelsize=stack.voxelsize,
@@ -138,6 +210,7 @@ def _sweep_table(stack: LabeledStack, engine: str, L: int, block) -> FeatureTabl
         wall_face_counts=counts3,
         margin=_margin_from_bbox(count, cmin, cmax, stack.shape),
     )
+    return _strip_z(table, d.image) if d.image.ndim == 2 else table
 
 
 def _margin_from_bbox(count, cmin, cmax, shape) -> np.ndarray:

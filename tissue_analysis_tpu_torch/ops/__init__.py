@@ -1,2 +1,3 @@
 """Device operators: the per-block sweep (``block_sweep``: CUDA kernel and
-plain version) and the combine / pair reduction after it (``combine``)."""
+plain version), the combine / pair reduction after it (``combine``), and
+the z-seam between two streamed slabs (``seam``)."""

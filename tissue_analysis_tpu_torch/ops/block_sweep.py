@@ -31,11 +31,16 @@ or int32) at run time and serves both. For every block of shape ``block``
 CUDA tensor and runs :func:`block_sweep_reference` for a CPU tensor; it
 never falls back from one to the other. The kernel is compiled with nvcc on
 first use into ``build/kernels/`` beside the package and loaded with ctypes.
+It keeps the [L, 3L] face matrix in shared memory while that fits (L up to
+~135) and adds into a zeroed ``faces`` in device memory above that, up to
+:func:`max_dict_size`. On a CUDA device both versions raise ``ValueError``,
+not a bare out-of-memory error, for a ``faces`` the device cannot hold.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -53,12 +58,15 @@ __all__ = [
     "block_sweep_reference",
     "build_kernel",
     "max_dict_size",
+    "PLAIN_MAX_DICT",
 ]
 
 IMAX = 2**31 - 1
 DEFAULT_BLOCK = (8, 16, 128)
 _DTYPES = (torch.uint16, torch.int32)
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+#: dictionary bound of the plain version: above the kernel's (~2600)
+PLAIN_MAX_DICT = 4096
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "block_sweep.cu")
@@ -147,21 +155,44 @@ def build_kernel() -> ctypes.CDLL:
                 os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ta_block_sweep.argtypes = [vp, ci, ci, ci, ci, ci, ci, ci, ci, ci] + [vp] * 7
+        lib.ta_block_sweep.argtypes = [vp] + [ci] * 10 + [vp] * 7
         lib.ta_block_sweep.restype = ci
-        lib.ta_block_sweep_smem_bytes.argtypes = [ci]
+        lib.ta_block_sweep_smem_bytes.argtypes = [ci, ci]
         lib.ta_block_sweep_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
         return lib
 
 
+@functools.lru_cache(maxsize=None)
 def max_dict_size() -> int:
-    """Largest dictionary size L whose block state fits shared memory."""
+    """Largest dictionary size L the kernel takes: the one whose block state
+    (hash, local moments, bbox; faces in device memory) fits shared memory."""
     smem = build_kernel().ta_block_sweep_smem_bytes
     L = 1
-    while smem(L + 1) <= _MAX_SMEM:
+    while smem(L + 1, 1) <= _MAX_SMEM:
         L += 1
     return L
+
+
+def _faces_buffer(
+    B: int, L: int, block, dev: torch.device, zeroed: bool = True
+) -> torch.Tensor:
+    """int32 [B, L, 3L], zeroed or not; a ``ValueError`` naming the bytes
+    and the block when the device cannot hold them (rather than a bare
+    out-of-memory error from the allocator).
+
+    The allocator itself decides: asking first (``torch.cuda.memory_stats``,
+    ``cudaMemGetInfo``) made back-to-back launches 0.02-0.04 ms slower
+    each on an H100."""
+    alloc = torch.zeros if zeroed else torch.empty
+    try:
+        return alloc((B, L, 3 * L), dtype=torch.int32, device=dev)
+    except torch.cuda.OutOfMemoryError:
+        free = torch.cuda.mem_get_info(dev)[0]
+        raise ValueError(
+            f"the [B, L, 3L] face counts of {B} blocks of {block} at "
+            f"L={L} need {B * L * 3 * L * 4:,} bytes; {dev} has {free:,} free"
+        ) from None
 
 
 # ---------------------------------------------------------------- wrappers
@@ -178,7 +209,13 @@ def block_sweep(dense: torch.Tensor, n: int, block=DEFAULT_BLOCK, L: int = 32) -
     if dense.device.type != "cuda":
         raise ValueError(f"unsupported device {dense.device}")
     lib = build_kernel()
-    if lib.ta_block_sweep_smem_bytes(L) > _MAX_SMEM:
+    return _launch(lib, dense, n, block, L, lib.ta_block_sweep_smem_bytes(L, 0) > _MAX_SMEM)
+
+
+def _launch(lib, dense, n, block, L, faces_global: bool) -> SweepOut:
+    """Launch the kernel with the face matrix in shared memory or (when
+    ``faces_global``) in a zeroed device buffer."""
+    if lib.ta_block_sweep_smem_bytes(L, int(faces_global)) > _MAX_SMEM:
         raise ValueError(
             f"dictionary size L={L} exceeds the kernel's shared-memory bound "
             f"(max {max_dict_size()})"
@@ -193,14 +230,15 @@ def block_sweep(dense: torch.Tensor, n: int, block=DEFAULT_BLOCK, L: int = 32) -
         mom=torch.empty((B, L, 10), dtype=torch.int64, device=dev),
         gmin=torch.empty((B, L, 3), **i32),
         gmax=torch.empty((B, L, 3), **i32),
-        faces=torch.empty((B, L, 3 * L), **i32),
+        # the kernel adds into a global face matrix, or writes all of it
+        faces=_faces_buffer(B, L, block, dev, zeroed=faces_global),
         ovf=torch.empty((B,), **i32),
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ta_block_sweep(
             dense.data_ptr(), int(dense.dtype == torch.int32), Z, Y, X,
-            *block, L, n, *(t.data_ptr() for t in out), stream,
+            *block, L, n, int(faces_global), *(t.data_ptr() for t in out), stream,
         )
     if err != 0:
         raise RuntimeError(f"block_sweep kernel launch failed: CUDA error {err}")
@@ -291,7 +329,7 @@ def block_sweep_reference(
         gmax[d].scatter_reduce_(0, row, cd, "amax")
 
     # ---- faces: a voxel's neighbour label looked up in the voxel's block
-    faces = torch.zeros(B * L * 3 * L, dtype=torch.int32, device=dev)
+    faces = _faces_buffer(B, L, block, dev).view(-1)
     for d, (idx, nv, _far) in enumerate(nbrs):
         a = v[idx]
         ok = (a >= 0) & (a < n) & (nv >= 0) & (nv < n) & (nv != a)
