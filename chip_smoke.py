@@ -28,9 +28,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    engine, and ``neighbors(connectivity=3)`` with its time and peak memory;
 9. ``analyze_raw`` at 512³ (no host relabel) against ``analyze``, with the
    stages of both;
-10. a dictionary past shared memory: ``grid_stack((256, 256, 512), (4, 4,
-    4))``, 524,288 labels in int32, through the retries 32 → 64 → 128 →
-    256 → 512 (the last two on the kernel's global face path), against
+10. a dictionary whose [L, 3L] face matrix is past shared memory:
+    ``grid_stack((256, 256, 512), (4, 4, 4))``, 524,288 labels in int32,
+    through the retries 32 → 64 → 128 → 256 → 512 (6.4 GB of faces), against
     closed-form counts and walls and the plain engine; kernel at L = 512
     against the plain version, and both timed;
 11. a time series at BASELINE config 5's size: three 512³ Voronoi frames
@@ -44,7 +44,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
     2×2×2 of it (1024³, 16,241 labels, 113,408 walls), each against the
     plain engine streamed over the same slabs and against the resident
     table of the materialised stack, with times, stages and peak device
-    memory of both.
+    memory of both;
+13. the adversarial inputs of ``ops/sweep_cases.py`` (no runs, runs across
+    every boundary, ragged, one label, no live label, ids spread over
+    n = 70,000, exactly L labels a block and one more, blocks (4, 8, 32)
+    and (1, 128, 128)): the kernel against the plain version.
+
+Kernel times are CUDA events over back-to-back launches (20 for the
+kernel, 5 for the plain version); whole passes are best of 5 on the host
+clock, fenced. Each kernel shape's bound is the larger of its bytes (the
+labels read once, the outputs written once) over 3.35 TB/s and its integer
+operations over 67 TOP/s (the H100 SXM's non-tensor rate), from this run's
+shapes.
 
 Every path is driven with the launch count set to 0 just before it and read
 just after. The last lines are a JSON record of the kernels, the
@@ -115,6 +126,44 @@ def best_of(fn, reps: int = 5, warmup: int = 2) -> float:
         sync()
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call (ms): CUDA events around ``reps``
+    back-to-back calls, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    sync()
+    return t0.elapsed_time(t1) / reps / 1e3
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor (fp32-class) rate
+OPS_PER_VOXEL = 25  # 10 moment adds, 6 products, 6 min/max, 3 face compares
+
+
+def sweep_bound(dense, block, L) -> dict:
+    """The least time the card could take for one sweep of ``dense``: the
+    bytes (labels read once; ids, mom, gmin, gmax, faces and ovf written
+    once) over the memory rate, or the operations over the integer rate,
+    whichever is larger."""
+    B = 1
+    for s, b in zip(dense.shape, block):
+        B *= -(-s // b)
+    bytes_ = dense.numel() * dense.element_size() + B * (4 + L * (4 + 80 + 24 + 12 * L))
+    ops = OPS_PER_VOXEL * dense.numel()
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return {"bytes": bytes_, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def max_abs_diff(a, b) -> int:
@@ -217,8 +266,9 @@ def phase_2d(log_prefix="[6]"):
     )
     facade_equal(a, plain, ("area", "perimeter", "neighbors", "inertia_axis", "L1"),
                  "2D facade cuda vs plain")
-    t_k = best_of(lambda: block_sweep(lifted, n, BLOCK_2D, L))
-    t_p = best_of(lambda: block_sweep_reference(lifted, n, BLOCK_2D, L))
+    t_k = event_ms(lambda: block_sweep(lifted, n, BLOCK_2D, L))
+    t_p = event_ms(lambda: block_sweep_reference(lifted, n, BLOCK_2D, L), reps=5, warmup=1)
+    bound = sweep_bound(lifted, BLOCK_2D, L)
     t_whole = best_of(lambda: SpatialImageAnalysis(img, background=1, device="cuda").table())
     with timing.collect() as stages:
         SpatialImageAnalysis(img, background=1, device="cuda").table()
@@ -226,11 +276,12 @@ def phase_2d(log_prefix="[6]"):
         f"L={L}, {table.n_labels} labels, {table.n_pairs} walls; table, kernel "
         f"(max |diff| {err}) and facade area/perimeter/neighbors/inertia_axis/L1 "
         f"== plain engine's (image generated in {t_gen:.1f} s)")
-    log(f"{log_prefix} 2D kernel {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms; whole facade "
+    log(f"{log_prefix} 2D kernel {t_k * 1e3:.3f} ms (bound {bound['bound_ms']:.3f} ms, "
+        f"{smem_line(L)}), plain {t_p * 1e3:.3f} ms; whole facade "
         f"pass (relabel + H2D + analyze) {t_whole * 1e3:.3f} ms "
         f"({SIZE_2D ** 2 / t_whole / 1e6:.1f} Mpix/s)")
     log(f"{log_prefix} stages of one 2D facade pass: {stages_line(stages)}")
-    return launches, err, t_k, t_p
+    return launches, err, t_k, t_p, bound
 
 
 def phase_grid(log_prefix="[7]"):
@@ -276,8 +327,9 @@ def phase_grid(log_prefix="[7]"):
     err = compare_sweeps(
         block_sweep(dense, n, DEFAULT_BLOCK, L), block_sweep_reference(dense, n, DEFAULT_BLOCK, L)
     )
-    t_k = best_of(lambda: block_sweep(dense, n, DEFAULT_BLOCK, L))
-    t_p = best_of(lambda: block_sweep_reference(dense, n, DEFAULT_BLOCK, L))
+    t_k = event_ms(lambda: block_sweep(dense, n, DEFAULT_BLOCK, L))
+    t_p = event_ms(lambda: block_sweep_reference(dense, n, DEFAULT_BLOCK, L), reps=5, warmup=1)
+    bound = sweep_bound(dense, DEFAULT_BLOCK, L)
     t_an = best_of(lambda: analyze_stack(stack))
     with timing.collect() as stages:
         analyze_stack(stack)
@@ -285,10 +337,18 @@ def phase_grid(log_prefix="[7]"):
         f"(up to L={L}), {n} labels {dense_dtype}, {table.n_pairs} walls, every count "
         f"{GRID_CELL ** 3}, every wall 64 faces; table == plain engine's; kernel at "
         f"L={L} == plain version (max |diff| {err})")
-    log(f"{log_prefix} grid kernel L={L} {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms; "
+    log(f"{log_prefix} grid kernel L={L} {t_k * 1e3:.3f} ms (bound {bound['bound_ms']:.3f} ms, "
+        f"{smem_line(L)}), plain {t_p * 1e3:.3f} ms; "
         f"analyze_stack (cuda, converged L) {t_an * 1e3:.3f} ms")
     log(f"{log_prefix} stages of one grid analyze_stack: {stages_line(stages)}")
-    return launches, err, t_k, t_p
+    return launches, err, t_k, t_p, bound
+
+
+def smem_line(L) -> str:
+    """The kernel's shared memory a CTA at this dictionary size."""
+    from tissue_analysis_tpu_torch.ops.block_sweep import build_kernel
+
+    return f"{build_kernel().ta_block_sweep_smem_bytes(L):,} B shared a CTA"
 
 
 def phase_facade_3d(img, log_prefix="[8]"):
@@ -391,7 +451,7 @@ def graphs_equal(a, b, what: str) -> None:
 
 
 def phase_grid4(log_prefix="[10]"):
-    """524,288 labels: a dictionary past the shared-memory face matrix."""
+    """524,288 labels: a dictionary whose face matrix is past shared memory."""
     import numpy as np
     import torch
 
@@ -399,7 +459,7 @@ def phase_grid4(log_prefix="[10]"):
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
     from tissue_analysis_tpu_torch.engine import _GOOD_L, analyze_stack
     from tissue_analysis_tpu_torch.ops.block_sweep import (
-        DEFAULT_BLOCK, block_sweep, block_sweep_reference, build_kernel,
+        DEFAULT_BLOCK, block_sweep, block_sweep_reference,
     )
     from tissue_analysis_tpu_torch.utils import timing
 
@@ -425,8 +485,8 @@ def phase_grid4(log_prefix="[10]"):
             f"grid4: expected {EXPECT_GRID4_LAUNCHES} launches up to L={EXPECT_GRID4_L}, "
             f"got {launches} up to L={L}"
         )
-    if not build_kernel().ta_block_sweep_smem_bytes(L, 0) > 232448:
-        raise AssertionError(f"grid4: L={L} does not take the global face path")
+    if not 3 * L * L * 4 > 232448:
+        raise AssertionError(f"grid4: an [L, 3L] face matrix at L={L} would fit shared memory")
     cell3 = GRID4_CELL ** 3
     if not np.all(table.count == cell3):
         raise AssertionError(f"grid4: a cell's voxel count is not {cell3}")
@@ -439,21 +499,23 @@ def phase_grid4(log_prefix="[10]"):
     err = compare_sweeps(
         block_sweep(dense, n, DEFAULT_BLOCK, L), block_sweep_reference(dense, n, DEFAULT_BLOCK, L)
     )
-    t_k = best_of(lambda: block_sweep(dense, n, DEFAULT_BLOCK, L))
-    t_p = best_of(lambda: block_sweep_reference(dense, n, DEFAULT_BLOCK, L), reps=3, warmup=1)
+    t_k = event_ms(lambda: block_sweep(dense, n, DEFAULT_BLOCK, L))
+    t_p = event_ms(lambda: block_sweep_reference(dense, n, DEFAULT_BLOCK, L), reps=5, warmup=1)
+    bound = sweep_bound(dense, DEFAULT_BLOCK, L)
     t_an = best_of(lambda: analyze_stack(stack))
     with timing.collect() as stages:
         analyze_stack(stack)
     log(f"{log_prefix} grid {GRID4_SHAPE} cell {GRID4_CELL}^3: {launches} kernel launches "
-        f"(up to L={L}, global face path), {n} labels {str(dense.dtype)[6:]}, "
+        f"(up to L={L}), {n} labels {str(dense.dtype)[6:]}, "
         f"{table.n_pairs} walls, every "
         f"count {cell3}, every wall 16 faces; table == plain engine's; kernel at L={L} "
         f"== plain version (max |diff| {err}); the first analyze_stack took "
         f"{peak / 2**30:.2f} GiB of device memory at its peak (above the stack)")
-    log(f"{log_prefix} grid4 kernel L={L} {t_k * 1e3:.3f} ms, plain {t_p * 1e3:.3f} ms; "
+    log(f"{log_prefix} grid4 kernel L={L} {t_k * 1e3:.3f} ms (bound {bound['bound_ms']:.3f} ms, "
+        f"{smem_line(L)}), plain {t_p * 1e3:.3f} ms; "
         f"analyze_stack (cuda, converged L) {t_an * 1e3:.3f} ms")
     log(f"{log_prefix} stages of one grid4 analyze_stack: {stages_line(stages)}")
-    return launches, err, t_k, t_p
+    return launches, err, t_k, t_p, bound
 
 
 def _voronoi_frame(shape, ncells: int, seed: int):
@@ -630,6 +692,35 @@ def phase_stream(img, log_prefix="[12]"):
     return sum(launches.values())
 
 
+def phase_adversarial(log_prefix="[13]") -> int:
+    """The kernel against its plain version on the adversarial inputs;
+    returns the max |diff|."""
+    import torch
+
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep, block_sweep_reference
+    from tissue_analysis_tpu_torch.ops.sweep_cases import CASES
+
+    worst = 0
+    for name, make in CASES.items():
+        dense, n, block, L = make()
+        t = torch.from_numpy(dense).cuda()
+        k, r = block_sweep(t, n, block, L), block_sweep_reference(t, n, block, L)
+        over = bool(r.ovf.any())
+        if over != (name == "alternate-x-over-L"):
+            raise AssertionError(f"{name}: overflow {over}")
+        if over:
+            # an overflowing block's flag and its L smallest ids are defined
+            if not (torch.equal(k.ovf, r.ovf) and torch.equal(k.ids, r.ids)):
+                raise AssertionError(f"{name}: ovf or ids differ")
+        else:
+            worst = max(worst, compare_sweeps(k, r))
+    sync()
+    log(f"{log_prefix} adversarial inputs: {len(CASES)} cases ({', '.join(CASES)}) == plain "
+        f"version (max |diff| {worst}; alternate-x-over-L: every block overflows, flags "
+        f"and ids equal)")
+    return worst
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -659,6 +750,7 @@ def run_phases(futures) -> int:
     from tissue_analysis_tpu_torch.engine import analyze_stack
     from tissue_analysis_tpu_torch.graph.from_image import graph_from_table
     from tissue_analysis_tpu_torch.ops.block_sweep import (
+        DEFAULT_BLOCK,
         block_sweep,
         block_sweep_reference,
         build_kernel,
@@ -693,7 +785,7 @@ def run_phases(futures) -> int:
         block_sweep(st64.dense, st64.n_labels),
         block_sweep_reference(st64.dense, st64.n_labels),
     )
-    cpu64 = analyze_stack(LabeledStack.from_array(small, background=1))
+    cpu64 = analyze_stack(LabeledStack.from_array(small, background=1, device="cpu"))
     tables_equal(cpu64, analyze_stack(st64), "64^3 cuda vs cpu table")
     stack = LabeledStack.from_array(img, background=1, device="cuda")
     dense16 = stack.dense
@@ -747,8 +839,11 @@ def run_phases(futures) -> int:
 
     # ---- 5. timing
     vox = SIZE ** 3
-    t_kernel = best_of(lambda: block_sweep(dense16, n))
-    t_plain = best_of(lambda: block_sweep_reference(dense16, n))
+    t_kernel = event_ms(lambda: block_sweep(dense16, n))
+    t_plain = event_ms(lambda: block_sweep_reference(dense16, n), reps=5, warmup=1)
+    b512 = sweep_bound(dense16, DEFAULT_BLOCK, 32)
+    log(f"[5] block_sweep kernel at {SIZE}^3: bound {b512['bound_ms']:.3f} ms "
+        f"({b512['bytes']:,} B); {smem_line(32)}")
     t_analyze = best_of(lambda: analyze_stack(stack))
     t_analyze_plain = best_of(lambda: analyze_stack(stack, engine="torch"))
     t_graph = best_of(lambda: graph_from_table(table))
@@ -770,49 +865,68 @@ def run_phases(futures) -> int:
     log("[5] stages of one whole pass: " + stages_line(stages))
 
     # ---- 6-9. kernel-v1's paths (2D, n >= 2^16), the facade, analyze_raw
-    l2d, e2d, k2d, p2d = phase_2d()
-    lgr, egr, kgr, pgr = phase_grid()
+    l2d, e2d, k2d, p2d, b2d = phase_2d()
+    lgr, egr, kgr, pgr, bgr = phase_grid()
     phase_facade_3d(img)
     phase_raw(img)
 
     # ---- 10-12. past the shared-memory dictionary, time series, streaming
-    lg4, eg4, kg4, pg4 = phase_grid4()
+    lg4, eg4, kg4, pg4, bg4 = phase_grid4()
     frames = [img] + [SpatialImage(a) for a, _ in done]
     l_series = phase_series(frames, [t_gen] + [t for _, t in done])
     del frames, done
     l_stream = phase_stream(img)
 
+    # ---- 13. adversarial inputs, every label layout and face path
+    e_adv = phase_adversarial()
+
+    def shape(name, launches_main, err, t_k, t_p, bound):
+        return {"shape": name, "launches_main_path": launches_main, "max_abs_err": float(err),
+                "ms": t_k * 1e3, "plain_ms": t_p * 1e3, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"]}
+
     src = "tissue_analysis_tpu_torch/csrc/block_sweep.cu"
+    k1_shapes = [shape(f"voronoi-{SIZE} uint16 block 8x16x128 L=32", launches, max_err,
+                       t_kernel, t_plain, b512)]
+    k2_shapes = [
+        shape(f"voronoi {SIZE_2D}^2 2D uint16 block 1x128x128 L=32", l2d, e2d, k2d, p2d, b2d),
+        shape(f"grid8-{SIZE} int32 L=128", lgr, egr, kgr, pgr, bgr),
+        shape(f"grid4 {GRID4_SHAPE} int32 L=512", lg4, eg4, kg4, pg4, bg4),
+    ]
     print(json.dumps({"kernels": [{
         "name": "block_sweep",
         "route": "cuda",
         "source": src,
         "replaces": "tissue_analysis_tpu/ops/pallas_block.py:830",
         "launches": launches,
-        "max_abs_err": float(max_err),
+        "max_abs_err": float(max(max_err, e_adv)),
         "ms": t_kernel * 1e3,
         "plain_ms": t_plain * 1e3,
+        "bound_ms": b512["bound_ms"],
+        "bound_by": b512["bound_by"],
+        # no single PyTorch call computes the sweep
+        "library_ms": None,
+        "shapes": k1_shapes,
         # the same contract on the series frames and the streamed slabs
         "launches_series": l_series,
         "launches_stream": l_stream,
     }, {
-        # kernel-v1's contract: the 2D lift and the int32 label space; ms
-        # and plain_ms are the sums over the 4096^2 image and the grid8
-        # 512^3 stack (as before the grid4 case), launches count all three
+        # kernel-v1's contract: the 2D lift and the int32 label space; ms,
+        # plain_ms and bound_ms are the sums over the 4096^2 image and the
+        # grid8 512^3 stack, launches count all three shapes
         "name": "block_sweep (kernel-v1 contract: 2D block 1x128x128, n >= 2^16)",
         "route": "cuda",
         "source": src,
         "replaces": "tissue_analysis_tpu/ops/pallas_block.py:678",
         "launches": l2d + lgr + lg4,
-        "max_abs_err": float(max(e2d, egr, eg4)),
+        "max_abs_err": float(max(e2d, egr, eg4, e_adv)),
         "ms": (k2d + kgr) * 1e3,
         "plain_ms": (p2d + pgr) * 1e3,
-        "ms_2d": k2d * 1e3,
-        "plain_ms_2d": p2d * 1e3,
-        "ms_grid8": kgr * 1e3,
-        "plain_ms_grid8": pgr * 1e3,
-        "ms_grid4": kg4 * 1e3,
-        "plain_ms_grid4": pg4 * 1e3,
+        "bound_ms": b2d["bound_ms"] + bgr["bound_ms"],
+        "bound_by": "bytes" if "operations" not in (b2d["bound_by"], bgr["bound_by"])
+        else "operations",
+        "library_ms": None,
+        "shapes": k2_shapes,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

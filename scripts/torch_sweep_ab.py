@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Time the port's block-sweep CUDA kernel of one or more source trees, in turns.
+
+Run from the repository root on a machine with a CUDA card and nvcc::
+
+    python scripts/torch_sweep_ab.py                      # this tree only
+    python scripts/torch_sweep_ab.py --trees build/parent . --order ABBA
+    python scripts/torch_sweep_ab.py --trees build/parent . --order ABBA --rounds 2 \
+        --out chiprun_out/ab.jsonl
+
+The inputs are made once (seeded) and saved under ``build/sweep_ab/``:
+
+- ``voronoi-512``: ``voronoi_stack((512,)*3, 3500, seed=1)`` relabeled,
+  uint16, block (8, 16, 128), L = 32;
+- ``2d-4096``: ``voronoi_stack((4096, 4096), 4000, seed=1)`` lifted to
+  ``[1, Y, X]``, uint16, block (1, 128, 128), L = 32;
+- ``grid8-512``: ``grid_stack((512,)*3, (8,)*3)``, int32, L = 128;
+- ``grid4``: ``grid_stack((256, 256, 512), (4,)*3)``, int32, L = 512;
+- ``empty-512``: 512³ voxels all of label n = 1, so no voxel takes part:
+  the cost of walking a stack with no dictionary, moment or face work;
+- ``voronoi-64``: a 64³ stack, for the wrapper's host time per launch.
+
+Each tree runs in its own process (``sys.path`` pointing at the tree), in
+the order given: ``--order ABBA`` with two trees runs A B B A, and
+``--rounds`` repeats that. A process checks its kernel against its plain
+version (``torch.equal`` on every output), then times it with CUDA events
+over ``--reps`` back-to-back launches after three warmups, and the host
+time a launch takes to enqueue on ``voronoi-64`` (the mean over 1000 calls
+without a sync, the device then being idle behind the host). Every result
+is one JSON line, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+CASES = {
+    # name: (block, L)
+    "voronoi-512": ((8, 16, 128), 32),
+    "2d-4096": ((1, 128, 128), 32),
+    "grid8-512": ((8, 16, 128), 128),
+    "grid4": ((8, 16, 128), 512),
+    "empty-512": ((8, 16, 128), 32),
+}
+HOST_CASE = "voronoi-64"
+DATA = os.path.join("build", "sweep_ab")
+
+
+def make_inputs(repo: str) -> None:
+    """Save every case's dense stack and label count under DATA."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, repo)
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack, voronoi_stack
+
+    os.makedirs(DATA, exist_ok=True)
+    makers = {
+        "voronoi-512": lambda: (voronoi_stack((512,) * 3, 3500, seed=1), 1),
+        "2d-4096": lambda: (voronoi_stack((4096, 4096), 4000, seed=1), 1),
+        "grid8-512": lambda: (grid_stack((512,) * 3, (8, 8, 8)), None),
+        "grid4": lambda: (grid_stack((256, 256, 512), (4, 4, 4)), None),
+        HOST_CASE: lambda: (voronoi_stack((64,) * 3, 150, seed=0), 1),
+    }
+    for name, make in makers.items():
+        path = os.path.join(DATA, name + ".npy")
+        if os.path.exists(path):
+            continue
+        img, bg = make()
+        st = LabeledStack.from_array(img, background=bg, device="cpu")
+        dense = st.dense if st.ndim == 3 else st.dense[None]
+        if name.startswith("grid"):
+            dense = dense.to(torch.int32)
+        save(name, dense.numpy(), st.n_labels)
+    if not os.path.exists(os.path.join(DATA, "empty-512.npy")):
+        save("empty-512", np.ones((512,) * 3, dtype=np.uint16), 1)
+
+
+def save(name: str, dense, n: int) -> None:
+    import numpy as np
+
+    np.save(os.path.join(DATA, name + ".npy"), np.ascontiguousarray(dense))
+    with open(os.path.join(DATA, name + ".n"), "w") as f:
+        f.write(str(n))
+
+
+def worker(tree: str, reps: int, smi: str) -> None:
+    """Time one tree's kernel on every case; print one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    import tissue_analysis_tpu_torch.ops.block_sweep as bs
+
+    if not os.path.abspath(bs.__file__).startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {bs.__file__}, not the tree {tree}")
+    bs.build_kernel()
+
+    def load(name):
+        dense = torch.from_numpy(np.load(os.path.join(DATA, name + ".npy"))).cuda()
+        with open(os.path.join(DATA, name + ".n")) as f:
+            return dense, int(f.read())
+
+    def equal(k, r):
+        ok = ~r.ovf.bool()
+        return bool(torch.equal(k.ovf, r.ovf)) and all(
+            bool(torch.equal(getattr(k, f)[ok], getattr(r, f)[ok]))
+            for f in ("ids", "mom", "gmin", "gmax", "faces"))
+
+    def events_ms(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "reps": reps, "cases": {}}
+    for name, (block, L) in CASES.items():
+        dense, n = load(name)
+        ref = bs.block_sweep_reference(dense, n, block, L)
+        fn = lambda: bs.block_sweep(dense, n, block, L)  # noqa: E731
+        out["cases"][name] = {"equal": equal(fn(), ref), "ms": events_ms(fn)}
+        del dense, ref
+        torch.cuda.empty_cache()
+    dense, n = load(HOST_CASE)
+    for _ in range(20):
+        bs.block_sweep(dense, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        bs.block_sweep(dense, n)
+    t_host = (time.perf_counter() - t0) / 1000
+    torch.cuda.synchronize()
+    out["host_us_per_launch_64"] = t_host * 1e6
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", nargs="+", default=["."])
+    ap.add_argument("--order", default="A", help="letters naming trees: A = first")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--smi", default="", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.worker:
+        worker(a.worker, a.reps, a.smi)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_sweep_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    make_inputs(os.path.abspath(a.trees[-1]))
+    print(f"inputs ready in {time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+    lines = []
+    for _ in range(a.rounds):
+        for letter in a.order:
+            tree = a.trees[ord(letter) - ord("A")]
+            cmd = [sys.executable, os.path.abspath(__file__), "--worker", tree,
+                   "--reps", str(a.reps), "--smi", smi]
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                print(res.stdout, res.stderr, file=sys.stderr)
+                return res.returncode
+            line = res.stdout.strip().splitlines()[-1]
+            lines.append(line)
+            rec = json.loads(line)
+            summary = ", ".join(f"{c} {v['ms']:.3f} ms{'' if v['equal'] else ' UNEQUAL'}"
+                                for c, v in rec["cases"].items())
+            print(f"{letter} {tree}: {summary}; host {rec['host_us_per_launch_64']:.1f} us/launch",
+                  flush=True)
+    if a.out:
+        os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+        with open(a.out, "a") as f:
+            f.write("\n".join(lines) + "\n")
+    bad = [c for line in lines for c, v in json.loads(line)["cases"].items()
+           if not v["equal"]]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

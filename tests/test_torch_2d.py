@@ -61,7 +61,7 @@ def tables(request):
         if name not in cache:
             src, bg = IMAGES[name]
             img = request.getfixturevalue(src) if isinstance(src, str) else src()
-            port = engine.analyze(img, background=bg)
+            port = engine.analyze(img, background=bg, device="cpu")
             assert port.ndim == 2 and port.n_pairs > 0
             cache[name] = (img, bg, port)
         return cache[name]
@@ -88,7 +88,7 @@ def test_absent_background_has_no_background_segment(tables):
 
 
 def test_2d_lift_is_a_view():
-    st = LabeledStack.from_array(np.arange(12, dtype=np.uint8).reshape(3, 4))
+    st = LabeledStack.from_array(np.arange(12, dtype=np.uint8).reshape(3, 4), device="cpu")
     lifted = engine._lift_2d(st)
     assert lifted.shape == (1, 3, 4) and lifted.voxelsize == (1.0, 1.0, 1.0)
     assert lifted.dense.data_ptr() == st.dense.data_ptr()
@@ -100,8 +100,8 @@ def test_converged_dict_size_keyed_by_block(monkeypatch):
     [1, Y, X] stack (default block) share shape and label count but not the
     converged dictionary size."""
     img = np.asarray(voronoi_stack((128, 128), 60, seed=2))
-    st2 = LabeledStack.from_array(img, background=1)
-    st3 = LabeledStack.from_array(img[None], background=1)
+    st2 = LabeledStack.from_array(img, background=1, device="cpu")
+    st3 = LabeledStack.from_array(img[None], background=1, device="cpu")
     for block in (engine.BLOCK_2D, DEFAULT_BLOCK):
         engine._GOOD_L.pop(((1, 128, 128), st2.n_labels, block, 32), None)
     calls = []

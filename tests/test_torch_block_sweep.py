@@ -35,13 +35,14 @@ from tissue_analysis_tpu_torch.ops.block_sweep import (  # noqa: E402
     block_sweep,
     block_sweep_reference,
 )
+from tissue_analysis_tpu_torch.ops.sweep_cases import CASES as SWEEP_CASES  # noqa: E402
 
 BLOCK = (8, 16, 128)
 
 
 def _stack(shape, ncells, seed):
     img = voronoi_stack(shape, ncells, seed=seed, voxelsize=(2.0, 0.5, 0.5))
-    return LabeledStack.from_array(img, background=1)
+    return LabeledStack.from_array(img, background=1, device="cpu")
 
 
 def _port_layout(ids, cols, gmin, gmax, pz, py, px, dovf, L):
@@ -230,7 +231,7 @@ def k2_sweeps():
     def get(name):
         if name not in cache:
             make, block, n, dtype = K2_CASES[name]
-            st = LabeledStack.from_array(make(), background=1)
+            st = LabeledStack.from_array(make(), background=1, device="cpu")
             dense = st.dense if st.ndim == 3 else st.dense[None]
             if n is None:
                 n = st.n_labels
@@ -261,3 +262,49 @@ def test_reference_matches_tpu_kernel_v1(k2_sweeps, name):
     assert int(ref.faces.sum()) > 0
     if n >= 1 << 16:
         assert int(ref.ids[ref.ids < IMAX].max()) >= 1 << 16
+
+
+@pytest.fixture(scope="module")
+def adversarial():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            dense, n, block, L = SWEEP_CASES[name]()
+            ref = block_sweep_reference(torch.from_numpy(dense), n, block, L)
+            if block == BLOCK and _v2_eligible(block, n):
+                jx = _jax_sweep(dense, n, L)
+            else:
+                jx = _jax_v1_sweep(dense, n, block, L)
+            cache[name] = (dense, n, block, L, ref, jx)
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(SWEEP_CASES))
+def test_reference_matches_tpu_kernel_adversarial(adversarial, name):
+    """The adversarial inputs of ``ops/sweep_cases.py``: the plain version
+    equals the TPU kernel of their block and label range (v2 or v1). Where
+    every block overflows, only the flags are defined."""
+    dense, n, block, L, ref, jx = adversarial(name)
+    j_ids, j_mom, j_gmin, j_gmax, j_faces, j_ovf = jx
+    np.testing.assert_array_equal(ref.ovf.numpy(), j_ovf)
+    nlab = (ref.ids < IMAX).sum(dim=1)
+    if name == "alternate-x-over-L":
+        assert bool(ref.ovf.all())
+        return
+    assert not ref.ovf.any()
+    np.testing.assert_array_equal(ref.ids.numpy(), j_ids)
+    np.testing.assert_array_equal(ref.mom.numpy(), j_mom)
+    np.testing.assert_array_equal(ref.gmin.numpy(), j_gmin)
+    np.testing.assert_array_equal(ref.gmax.numpy(), j_gmax)
+    np.testing.assert_array_equal(ref.faces.numpy(), j_faces)
+    live = int(((dense >= 0) & (dense < n)).sum())
+    assert int(ref.mom[..., 0].sum()) == live
+    if name == "alternate-x-at-L":
+        assert bool((nlab == L).all())
+    if name == "all-n":
+        assert int(nlab.max()) == 0 and int(ref.faces.sum()) == 0
+    if name == "single-label":
+        assert bool((nlab == 1).all()) and int(ref.faces.sum()) == 0

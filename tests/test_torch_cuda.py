@@ -24,6 +24,7 @@ from tissue_analysis_tpu_torch.ops.block_sweep import (  # noqa: E402
     block_sweep_reference,
     max_dict_size,
 )
+from tissue_analysis_tpu_torch.ops.sweep_cases import CASES as SWEEP_CASES  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -75,7 +76,7 @@ def test_kernel_equals_plain_version(dev, shape, ncells, dtype, block, L):
 
 def test_engine_cuda_equals_cpu(dev):
     img = voronoi_stack((40, 48, 136), 90, seed=4, voxelsize=(2.0, 0.5, 0.5))
-    cpu = engine.analyze_stack(LabeledStack.from_array(img, background=1))
+    cpu = engine.analyze_stack(LabeledStack.from_array(img, background=1, device="cpu"))
     before = block_sweep.launches
     gpu = engine.analyze_stack(LabeledStack.from_array(img, background=1, device=dev))
     assert block_sweep.launches > before
@@ -153,7 +154,7 @@ FIELDS = ("ids", "count", "s1", "s2", "cmin", "cmax", "pair_lo", "pair_hi",
 
 def test_2d_cuda_equals_cpu(dev):
     img = voronoi_stack((600, 700), 120, seed=2, voxelsize=(0.5, 2.0))
-    cpu = engine.analyze(img, background=1)
+    cpu = engine.analyze(img, background=1, device="cpu")
     before = block_sweep.launches
     gpu = engine.analyze(img, background=1, device=dev)
     assert block_sweep.launches > before
@@ -164,7 +165,7 @@ def test_2d_cuda_equals_cpu(dev):
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int64])
 def test_analyze_raw_cuda_equals_cpu(dev, dtype):
     img = np.asarray(voronoi_stack((40, 48, 136), 90, seed=4)).astype(dtype)
-    cpu = engine.analyze(img, background=1)
+    cpu = engine.analyze(img, background=1, device="cpu")
     before = block_sweep.launches
     gpu = engine.analyze_raw(img, background=1, device=dev)
     assert block_sweep.launches > before
@@ -177,7 +178,7 @@ def test_facade_cuda_equals_cpu(dev, shape, ncells):
     from tissue_analysis_tpu_torch.analysis import SpatialImageAnalysis, hollow_out_cells
 
     img = voronoi_stack(shape, ncells, seed=5)
-    cpu = SpatialImageAnalysis(img, background=1)
+    cpu = SpatialImageAnalysis(img, background=1, device="cpu")
     gpu = SpatialImageAnalysis(img, background=1, device=dev)
     assert gpu.stack().device.type == "cuda"
     before = block_sweep.launches
@@ -191,7 +192,8 @@ def test_facade_cuda_equals_cpu(dev, shape, ncells):
         np.testing.assert_array_equal(vecs, g_vecs)
         np.testing.assert_array_equal(vals, g_vals)
     np.testing.assert_array_equal(
-        np.asarray(hollow_out_cells(img, 1)), np.asarray(hollow_out_cells(img, 1, device=dev))
+        np.asarray(hollow_out_cells(img, 1, device="cpu")),
+        np.asarray(hollow_out_cells(img, 1, device=dev)),
     )
 
 
@@ -204,11 +206,12 @@ def _grid4(dev):
 
 @pytest.mark.parametrize("L", [256, 512])
 def test_kernel_global_face_path_equals_plain_version(dev, L):
-    """Past ~135 the face matrix no longer fits shared memory: the kernel
-    adds into a zeroed device buffer instead. At L = 256 the densest blocks
-    overflow, and the rest must still match."""
+    """Past ~135 an [L, 3L] face matrix would not fit shared memory; the
+    kernel adds faces into a zeroed device buffer (at every L). At L = 256
+    the densest blocks overflow, and the rest must still match."""
     st = _grid4(dev)
-    assert bs.build_kernel().ta_block_sweep_smem_bytes(L, 0) > bs._MAX_SMEM
+    assert 3 * L * L * 4 > bs._MAX_SMEM
+    assert bs.build_kernel().ta_block_sweep_smem_bytes(L) <= bs._MAX_SMEM
     k = block_sweep(st.dense, st.n_labels, (8, 16, 128), L)
     torch.cuda.synchronize()
     r = block_sweep_reference(st.dense, st.n_labels, (8, 16, 128), L)
@@ -220,10 +223,11 @@ def test_kernel_global_face_path_equals_plain_version(dev, L):
     ((64, 64, 64), 150, torch.uint16), ((24, 40, 130), 45, torch.int32),
 ])
 def test_kernel_global_face_path_at_small_L(dev, shape, ncells, dtype):
-    """The global face path forced where the shared one would serve."""
+    """The same face path at a small L, where the face matrix would fit
+    shared memory, through the launch the wrapper makes."""
     st = _stack(shape, ncells, 0, dev)
     dense = st.dense.to(dtype)
-    k = bs._launch(bs.build_kernel(), dense, st.n_labels, (8, 16, 128), 32, True)
+    k = bs._launch(bs.build_kernel(), dense, st.n_labels, (8, 16, 128), 32)
     torch.cuda.synchronize()
     _assert_sweeps_equal(k, block_sweep_reference(dense, st.n_labels, (8, 16, 128), 32))
 
@@ -260,7 +264,7 @@ def test_series_cuda_equals_cpu(dev):
     from tissue_analysis_tpu_torch.series import analyze_series
 
     frames = [voronoi_stack((64, 64, 64), nc, seed=s) for nc, s in ((90, 4), (120, 5))]
-    cpu = analyze_series(frames, background=1)
+    cpu = analyze_series(frames, background=1, devices=["cpu"])
     before = block_sweep.launches
     gpu = analyze_series(frames, background=1, devices=[dev])
     assert block_sweep.launches - before >= 2
@@ -274,7 +278,7 @@ def test_series_longer_than_its_window_cuda_equals_cpu(dev):
     from tissue_analysis_tpu_torch.series import analyze_series
 
     frames = [voronoi_stack((64, 64, 64), 60 + 20 * s, seed=s) for s in range(5)]
-    cpu = analyze_series(frames, background=1)
+    cpu = analyze_series(frames, background=1, devices=["cpu"])
     before = block_sweep.launches
     gpu = analyze_series(frames, background=1, devices=[dev])
     assert block_sweep.launches - before >= 5
@@ -289,7 +293,7 @@ def test_streamed_cuda_equals_cpu(dev, slab_z):
     from tissue_analysis_tpu_torch.streaming import analyze_streamed
 
     img = np.asarray(voronoi_stack((64, 64, 64), 90, seed=4))
-    cpu = analyze_streamed(img, background=1, slab_z=slab_z)
+    cpu = analyze_streamed(img, background=1, slab_z=slab_z, device="cpu")
     before = block_sweep.launches
     gpu = analyze_streamed(img, background=1, slab_z=slab_z, device=dev)
     assert block_sweep.launches - before == -(-64 // slab_z)
@@ -297,3 +301,19 @@ def test_streamed_cuda_equals_cpu(dev, slab_z):
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(cpu, f), getattr(gpu, f), err_msg=f)
         np.testing.assert_array_equal(getattr(resident, f), getattr(gpu, f), err_msg=f)
+
+
+@pytest.mark.parametrize("name", list(SWEEP_CASES))
+def test_kernel_equals_plain_version_adversarial(dev, name):
+    """The adversarial inputs of ``ops/sweep_cases.py``. Where a block
+    overflows, its flag and its L smallest ids are still defined."""
+    dense, n, block, L = SWEEP_CASES[name]()
+    t = torch.from_numpy(dense).to(dev)
+    before = block_sweep.launches
+    k = block_sweep(t, n, block, L)
+    torch.cuda.synchronize()
+    assert block_sweep.launches == before + 1
+    r = block_sweep_reference(t, n, block, L)
+    _assert_sweeps_equal(k, r)
+    assert torch.equal(k.ids, r.ids)
+    assert bool(r.ovf.all()) == (name == "alternate-x-over-L")

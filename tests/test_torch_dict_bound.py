@@ -48,7 +48,7 @@ def img():
 @pytest.fixture(scope="module")
 def converged(img):
     """(stack, table, number of sweeps) of the port's plain engine from L = 32."""
-    st = LabeledStack.from_array(img, background=None)
+    st = LabeledStack.from_array(img, background=None, device="cpu")
     engine._GOOD_L.pop((st.shape, st.n_labels, bs.DEFAULT_BLOCK, 32), None)
     with timing.collect() as t:
         table = engine.analyze_stack(st)
@@ -91,7 +91,7 @@ def test_equals_jax_blocked_engine(img, converged):
 
 
 def test_overflow_past_the_bound_raises(img, monkeypatch):
-    st = LabeledStack.from_array(img, background=None)
+    st = LabeledStack.from_array(img, background=None, device="cpu")
     monkeypatch.setattr(engine, "PLAIN_MAX_DICT", 128)
     key = (st.shape, st.n_labels, bs.DEFAULT_BLOCK, 32)
     engine._GOOD_L.pop(key, None)

@@ -63,7 +63,7 @@ def tables(request):
             img = request.getfixturevalue(name)
             bg = IMAGES[name]
             js = JaxStack.from_array(img, background=bg)
-            ps = LabeledStack.from_array(img, background=bg)
+            ps = LabeledStack.from_array(img, background=bg, device="cpu")
             cache[name] = (js, ps, engine.analyze_stack(ps))
         return cache[name]
 
@@ -90,7 +90,7 @@ def test_stack_from_reference_fields(tables, name):
     np.testing.assert_array_equal(np.asarray(js.dense), ps.dense.to(torch.int32).numpy())
     assert ps.dense.dtype == (torch.uint16 if ps.n_labels <= 0xFFFF else torch.int32)
     st = LabeledStack.from_numpy(
-        np.asarray(js.dense), js.ids, js.voxelsize, js.background_segment
+        np.asarray(js.dense), js.ids, js.voxelsize, js.background_segment, device="cpu"
     )
     assert_tables_equal(port, engine.analyze_stack(st, engine="torch"))
 
@@ -129,7 +129,9 @@ def test_2d_stack_not_ported_yet():
     """2D stacks used to raise NotImplementedError; they now run through
     the [1, Y, X] lift (held against the JAX engines in test_torch_2d.py).
     Here: the closed-form tables of a diagonal on an 8×8 image."""
-    st = LabeledStack.from_array(np.ones((8, 8), np.uint8) + np.eye(8, dtype=np.uint8))
+    st = LabeledStack.from_array(
+        np.ones((8, 8), np.uint8) + np.eye(8, dtype=np.uint8), device="cpu"
+    )
     t = engine.analyze_stack(st)
     assert t.shape == (8, 8) and t.s1.shape == (2, 2) and t.s2.shape == (2, 3)
     np.testing.assert_array_equal(t.ids, [1, 2])
@@ -151,7 +153,7 @@ def test_more_than_65535_labels():
     shape, cell = (64, 256, 256), (4, 4, 4)
     grid = tuple(s // c for s, c in zip(shape, cell))
     n = int(np.prod(grid))
-    st = LabeledStack.from_array(grid_stack(shape, cell), background=None)
+    st = LabeledStack.from_array(grid_stack(shape, cell), background=None, device="cpu")
     assert n > 0xFFFF and st.dense.dtype == torch.int32
     # 256 cells per 8x16x128 block: start at a dictionary that holds them
     t = engine.analyze_stack(st, L=512)
@@ -168,4 +170,4 @@ def test_more_than_65535_labels():
 
 def test_analyze_entry_point(small3d, tables):
     _, _, port = tables("small3d")
-    assert_tables_equal(port, engine.analyze(small3d, background=1))
+    assert_tables_equal(port, engine.analyze(small3d, background=1, device="cpu"))

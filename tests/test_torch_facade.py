@@ -67,7 +67,7 @@ def facades(request):
             img = request.getfixturevalue(name)
             cache[name] = (
                 J.SpatialImageAnalysis(img, **kwargs[name]),
-                P.SpatialImageAnalysis(img, **kwargs[name]),
+                P.SpatialImageAnalysis(img, **kwargs[name], device="cpu"),
             )
         return cache[name]
 
@@ -134,7 +134,7 @@ def test_query_equals_jax_facade(facades, image, method, kwargs):
 def test_return_modes_and_scalar_requests(small3d):
     for mode in (P.DICT, P.LIST, P.NPLIST):
         ref = J.SpatialImageAnalysis(small3d, return_type=mode, background=1)
-        port = P.SpatialImageAnalysis(small3d, return_type=mode, background=1)
+        port = P.SpatialImageAnalysis(small3d, return_type=mode, background=1, device="cpu")
         assert _same(ref.volume(), port.volume())
         assert _same(ref.boundingbox(), port.boundingbox())
         l = port.labels()[2]
@@ -144,11 +144,11 @@ def test_return_modes_and_scalar_requests(small3d):
 
 
 def test_ignoredlabels(small3d):
-    a = P.SpatialImageAnalysis(small3d, background=1)
+    a = P.SpatialImageAnalysis(small3d, background=1, device="cpu")
     cell = a.L1()[0]
     victims = [l for l in a.neighbors(cell) if l != 1][:2]
     ref = J.SpatialImageAnalysis(small3d, ignoredlabels=victims, background=1)
-    port = P.SpatialImageAnalysis(small3d, ignoredlabels=victims, background=1)
+    port = P.SpatialImageAnalysis(small3d, ignoredlabels=victims, background=1, device="cpu")
     for q in ("labels", "neighbors", "wall_surfaces", "L1", "border_cells"):
         assert _same(getattr(ref, q)(), getattr(port, q)()), q
     assert victims[0] not in port.neighbors(cell) and 1 in port.neighbors(cell)
@@ -156,7 +156,7 @@ def test_ignoredlabels(small3d):
 
 def test_remove_margins_cells(small3d):
     ref = J.SpatialImageAnalysis(small3d, background=1)
-    port = P.SpatialImageAnalysis(small3d, background=1)
+    port = P.SpatialImageAnalysis(small3d, background=1, device="cpu")
     assert port.remove_margins_cells() == ref.remove_margins_cells()
     assert _same(ref.labels(), port.labels())
     assert _same(ref.volume(real=False), port.volume(real=False))
@@ -175,7 +175,7 @@ def test_wall_voxels_between_two_cells(facades):
 def test_corner_touch_connectivity(conn):
     img = _corner_touch_image()
     ref = J.SpatialImageAnalysis(img, background=1)
-    port = P.SpatialImageAnalysis(img, background=1)
+    port = P.SpatialImageAnalysis(img, background=1, device="cpu")
     got = port.neighbors(connectivity=conn)
     assert _same(ref.neighbors(connectivity=conn), got)
     assert (9 in got[5]) == (conn == 3)
@@ -188,7 +188,7 @@ def test_corner_touch_connectivity(conn):
 def test_voronoi_connectivity(conn):
     img = voronoi_stack((24, 24, 24), 20, seed=3, voxelsize=(2.0, 0.5, 0.5))
     ref = J.SpatialImageAnalysis(np.asarray(img), background=1)
-    port = P.SpatialImageAnalysis(np.asarray(img), background=1)
+    port = P.SpatialImageAnalysis(np.asarray(img), background=1, device="cpu")
     assert _same(ref.neighbors(connectivity=conn), port.neighbors(connectivity=conn))
 
 
@@ -197,7 +197,7 @@ def test_adjacency_offsets_equal_jax(small3d, small2d, ndim, conn):
     img = small3d if ndim == 3 else small2d
     offs = stencil.connectivity_offsets(ndim, conn)
     assert offs == jax_stencil.connectivity_offsets(ndim, conn)
-    st = LabeledStack.from_array(img, background=1)
+    st = LabeledStack.from_array(img, background=1, device="cpu")
     plo, phi, cnt = stencil.adjacency_offsets(st.dense, st.n_labels, offs)
     import jax.numpy as jnp
 
@@ -213,7 +213,7 @@ def test_adjacency_offsets_equal_jax(small3d, small2d, ndim, conn):
 
 def test_hollow_out_cells(small3d):
     a = J.hollow_out_cells(small3d, background=1)
-    b = P.hollow_out_cells(small3d, background=1)
+    b = P.hollow_out_cells(small3d, background=1, device="cpu")
     assert _same(np.asarray(a), np.asarray(b))
     assert b.voxelsize == a.voxelsize
     assert int((np.asarray(b) != np.asarray(small3d)).sum()) > 0
@@ -222,7 +222,7 @@ def test_hollow_out_cells(small3d):
 @pytest.mark.parametrize("image,label", [("cube", 5), ("small3d", 7), ("small2d", 4)])
 def test_wall(request, image, label):
     img = np.asarray(request.getfixturevalue(image))
-    m = P.wall(img, label)
+    m = P.wall(img, label, device="cpu")
     assert m.any() and _same(J.wall(img, label), m)
 
 
@@ -259,28 +259,28 @@ def test_misc_utilities(tmp_path):
 
 
 def test_factory_dispatch(small3d, small2d):
-    assert isinstance(P.SpatialImageAnalysis(small3d), P.SpatialImageAnalysis3D)
-    assert isinstance(P.SpatialImageAnalysis(small2d), P.SpatialImageAnalysis2D)
+    assert isinstance(P.SpatialImageAnalysis(small3d, device="cpu"), P.SpatialImageAnalysis3D)
+    assert isinstance(P.SpatialImageAnalysis(small2d, device="cpu"), P.SpatialImageAnalysis2D)
     thin = np.ones((2, 16, 16), dtype=np.uint8)
-    assert isinstance(P.SpatialImageAnalysis(thin), P.SpatialImageAnalysis3DS)
+    assert isinstance(P.SpatialImageAnalysis(thin, device="cpu"), P.SpatialImageAnalysis3DS)
     assert isinstance(
-        P.SpatialImageAnalysis(np.asarray(small3d), variant="3DS"),
+        P.SpatialImageAnalysis(np.asarray(small3d), variant="3DS", device="cpu"),
         P.SpatialImageAnalysis3DS,
     )
     with pytest.raises(ValueError):
-        P.SpatialImageAnalysis(np.ones((2, 2, 2, 2), np.uint8))
+        P.SpatialImageAnalysis(np.ones((2, 2, 2, 2), np.uint8), device="cpu")
 
 
 def test_analysis_config_and_background_override(small3d):
     img = np.asarray(small3d)
     cfg = P.AnalysisConfig(background=1, ignoredlabels=(3,), return_type=P.LIST)
-    a = P.SpatialImageAnalysis(img, config=cfg)
+    a = P.SpatialImageAnalysis(img, config=cfg, device="cpu")
     assert 3 not in a.labels() and isinstance(a.volume(), list)
-    b = P.SpatialImageAnalysis(img, config=cfg, return_type=0)
+    b = P.SpatialImageAnalysis(img, config=cfg, return_type=0, device="cpu")
     assert isinstance(b.volume(), dict)
     cfg7 = P.AnalysisConfig(background=7)
-    assert P.SpatialImageAnalysis(img, background=1, config=cfg7).background() == 1
-    assert P.SpatialImageAnalysis(img, config=cfg7).background() == 7
+    assert P.SpatialImageAnalysis(img, background=1, config=cfg7, device="cpu").background() == 1
+    assert P.SpatialImageAnalysis(img, config=cfg7, device="cpu").background() == 7
 
 
 @pytest.mark.parametrize(
@@ -290,7 +290,7 @@ def test_analysis_config_and_background_override(small3d):
 )
 def test_engine_name_mapping(facades, small3d, name, port_engine):
     assert P.resolve_engine(name) == port_engine
-    a = P.SpatialImageAnalysis(small3d, config=P.AnalysisConfig(engine=name))
+    a = P.SpatialImageAnalysis(small3d, config=P.AnalysisConfig(engine=name), device="cpu")
     if port_engine == "cuda":
         # the kernel needs a CUDA stack: a CPU stack raises, never falls back
         with pytest.raises(ValueError, match="cuda"):
@@ -301,7 +301,7 @@ def test_engine_name_mapping(facades, small3d, name, port_engine):
 
 
 def test_unknown_engine_and_missing_cuda_raise(small3d, monkeypatch):
-    a = P.SpatialImageAnalysis(small3d, config=P.AnalysisConfig(engine="xla"))
+    a = P.SpatialImageAnalysis(small3d, config=P.AnalysisConfig(engine="xla"), device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         a.table()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -55,7 +55,7 @@ def assert_graphs_equal(ref, port):
 @pytest.fixture(scope="module")
 def tables(small3d):
     ref = analyze_stack_blocked(JaxStack.from_array(small3d, background=1))
-    port = engine.analyze_stack(LabeledStack.from_array(small3d, background=1))
+    port = engine.analyze_stack(LabeledStack.from_array(small3d, background=1, device="cpu"))
     return ref, port
 
 
@@ -81,7 +81,7 @@ def test_graph_from_image_entry_point(small3d, tables):
     ref, _ = tables
     assert_graphs_equal(
         jax_graph_from_table(ref, background=1),
-        graph_from_image(small3d, background=1),
+        graph_from_image(small3d, background=1, device="cpu"),
     )
 
 
@@ -93,6 +93,6 @@ def test_graph_from_image_2d(small2d):
     )
 
     g_ref = jax_graph_from_image(small2d, background=1)
-    g_port = graph_from_image(small2d, background=1)
+    g_port = graph_from_image(small2d, background=1, device="cpu")
     assert g_port.nb_edges() > 0
     assert_graphs_equal(g_ref, g_port)

@@ -37,22 +37,24 @@ def test_port_runs_with_jax_blocked():
         import tissue_analysis_tpu_torch.ops.stencil  # noqa: F401
 
         img = voronoi_stack((16, 16, 16), 12, seed=0)
-        t = T.analyze(img, background=1)
+        t = T.analyze(img, background=1, device="cpu")
         g = T.graph_from_table(t)
         assert t.n_labels > 2 and t.n_pairs > 0 and g.nb_edges() > 0
         assert int(t.count.sum()) == 16 ** 3
-        raw = T.analyze_raw(img, background=1)
+        raw = T.analyze_raw(img, background=1, device="cpu")
         assert np.array_equal(raw.count, t.count)
-        a = A.SpatialImageAnalysis(voronoi_stack((24, 20), 8, seed=1), background=1)
+        a = A.SpatialImageAnalysis(voronoi_stack((24, 20), 8, seed=1), background=1,
+                                   device="cpu")
         assert a.nb_labels() > 2 and len(a.neighbors(connectivity=2)) > 2
-        assert A.hollow_out_cells(img, background=1).shape == img.shape
+        assert A.hollow_out_cells(img, background=1, device="cpu").shape == img.shape
         import tissue_analysis_tpu_torch.graph.temporal  # noqa: F401
         import tissue_analysis_tpu_torch.ops.seam  # noqa: F401
         from tissue_analysis_tpu_torch.oracle import ScipyOracle
         assert ScipyOracle(img, background=1).volume()[1] > 0
-        s = T.analyze_streamed(img, background=1, slab_z=5)
+        s = T.analyze_streamed(img, background=1, slab_z=5, device="cpu")
         assert np.array_equal(s.pair_lo, t.pair_lo) and np.array_equal(s.s2, t.s2)
-        tpg = T.temporal_graph_from_images([img, img], [{2: [2]}], background=1)
+        tpg = T.temporal_graph_from_images([img, img], [{2: [2]}], background=1,
+                                           devices=["cpu"])
         assert tpg.graph_property("nb_time_points") == 2
         assert T.temporal_change(tpg, "volume", rank=1)
         leaked = sorted(
@@ -102,7 +104,7 @@ def test_fixture_images_bit_equal():
 @pytest.fixture(scope="module")
 def table_pair(small3d):
     ref = analyze_stack_blocked(JaxStack.from_array(small3d, background=1))
-    port = engine.analyze_stack(LabeledStack.from_array(small3d, background=1))
+    port = engine.analyze_stack(LabeledStack.from_array(small3d, background=1, device="cpu"))
     return ref, port
 
 

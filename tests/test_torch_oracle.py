@@ -51,7 +51,7 @@ def test_port_table_matches_oracle(small3d, pair):
     """The port's table against the copied oracle, as ``test_adjacency_parity``
     holds the JAX table against the JAX oracle."""
     _, oracle = pair
-    t = SpatialImageAnalysis(small3d, background=1).table()
+    t = SpatialImageAnalysis(small3d, background=1, device="cpu").table()
     assert t.adjacency() == oracle.neighbors()
     assert t.l1_labels() == oracle.l1()
     order = np.argsort(t.ids)

@@ -97,13 +97,13 @@ def test_raw_equals_jax_raw_and_relabel(name):
     make, bg, raw_route = CASES[name]
     img = make()
     with timing.collect() as t:
-        port = engine.analyze_raw(img, background=bg)
+        port = engine.analyze_raw(img, background=bg, device="cpu")
     names = [s.name for s in t.stages]
     # the route taken: the raw sweep never relabels on the host
     assert ("raw-mode host compaction" in names) == raw_route
     assert ("ingest: dense relabel" in names) != raw_route
     assert_tables_equal(jax_analyze_raw(img, background=bg), port)
-    assert_tables_equal(engine.analyze(img, background=bg), port)
+    assert_tables_equal(engine.analyze(img, background=bg, device="cpu"), port)
 
 
 def test_raw_sweep_dtype_follows_id_range(monkeypatch):
@@ -115,11 +115,11 @@ def test_raw_sweep_dtype_follows_id_range(monkeypatch):
         return real(stack, **kw)
 
     monkeypatch.setattr(engine, "analyze_stack", recording)
-    engine.analyze_raw(_voronoi(np.int64), background=1)
-    engine.analyze_raw(_past_uint16(), background=1)
+    engine.analyze_raw(_voronoi(np.int64), background=1, device="cpu")
+    engine.analyze_raw(_past_uint16(), background=1, device="cpu")
     assert seen == [torch.uint16, torch.int32]
 
 
 def test_raw_float_dtype_rejected():
     with pytest.raises(TypeError):
-        engine.analyze_raw(np.zeros((4, 4, 4), dtype=np.float32))
+        engine.analyze_raw(np.zeros((4, 4, 4), dtype=np.float32), device="cpu")

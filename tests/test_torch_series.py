@@ -57,21 +57,22 @@ def lineages(frames):
 
 def test_analyze_series_equals_reference(frames):
     ref = jseries.analyze_series(frames, background=1)
-    got = series.analyze_series(frames, background=1)
+    got = series.analyze_series(frames, background=1, devices=["cpu"])
     assert len(got) == 3
     for r, g in zip(ref, got):
         assert_tables_equal(r, g)
 
 
 def test_analyze_series_equals_analyze_stack_per_frame(frames):
-    for img, t in zip(frames, series.analyze_series(frames, background=1)):
-        assert_tables_equal(engine.analyze_stack(LabeledStack.from_array(img, background=1)), t)
+    for img, t in zip(frames, series.analyze_series(frames, background=1, devices=["cpu"])):
+        ref = engine.analyze_stack(LabeledStack.from_array(img, background=1, device="cpu"))
+        assert_tables_equal(ref, t)
 
 
 @pytest.mark.parametrize("n_bucket", [64, 256, 1000])
 def test_bucketed_equals_exact_n(frames, n_bucket):
     img = frames[1]
-    stack = LabeledStack.from_array(img, background=1)
+    stack = LabeledStack.from_array(img, background=1, device="cpu")
     exact = engine.analyze_stack(stack)
     bucketed = engine.analyze_stack(stack, n_bucket=n_bucket)
     assert_tables_equal(exact, bucketed)
@@ -81,13 +82,13 @@ def test_bucketed_equals_exact_n(frames, n_bucket):
 
 def test_bucketed_2d_equals_exact_n():
     img = voronoi_stack((48, 40), 20, seed=1, voxelsize=(0.75, 1.25))
-    stack = LabeledStack.from_array(img, background=1)
+    stack = LabeledStack.from_array(img, background=1, device="cpu")
     assert_tables_equal(engine.analyze_stack(stack), engine.analyze_stack(stack, n_bucket=128))
 
 
 def test_graph_series_equals_reference(frames):
     ref = jseries.graph_series(frames, background=1)
-    got = series.graph_series(frames, background=1)
+    got = series.graph_series(frames, background=1, devices=["cpu"])
     assert len(got) == len(ref) == 3
     for r, g in zip(ref, got):
         assert g.nb_vertices() > 0 and "volume" in g.vertex_property_names()
@@ -97,13 +98,13 @@ def test_graph_series_equals_reference(frames):
 def test_graph_series_kwargs_equal_reference(frames):
     kw = dict(default_real_property=False, remove_stack_margins_cells=True)
     for r, g in zip(jseries.graph_series(frames, background=1, **kw),
-                    series.graph_series(frames, background=1, **kw)):
+                    series.graph_series(frames, background=1, **kw, devices=["cpu"])):
         assert_graphs_equal(r, g)
 
 
 def test_temporal_graph_from_images_equals_reference(frames, lineages):
     ref = jseries.temporal_graph_from_images(frames, lineages, background=1)
-    got = series.temporal_graph_from_images(frames, lineages, background=1)
+    got = series.temporal_graph_from_images(frames, lineages, background=1, devices=["cpu"])
     assert got.graph_property("nb_time_points") == 3
     assert_graphs_equal(ref, got)
     et = got.edge_property("edge_type")
@@ -147,7 +148,7 @@ def test_devices_round_robin(frames, monkeypatch):
     assert [d for d, _ in seen] == [cpu] * 3
     # frames of one shape share the largest bucket seen so far
     assert [b for _, b in seen] == [64, 64, 64]
-    for r, g in zip(series.analyze_series(frames, background=1), got):
+    for r, g in zip(series.analyze_series(frames, background=1, devices=["cpu"]), got):
         assert_tables_equal(r, g)
 
 
@@ -178,9 +179,12 @@ def test_frames_in_flight_are_bounded(frames, monkeypatch, n_devices, order):
     index = {id(h): i for i, (k, h) in enumerate(e for e in events if e[0] == "d")}
     assert [f"{k}{index[id(h)]}" for k, h in events] == order
     for img, t in zip(five, got):
-        assert_tables_equal(engine.analyze_stack(LabeledStack.from_array(img, background=1)), t)
+        ref = engine.analyze_stack(LabeledStack.from_array(img, background=1, device="cpu"))
+        assert_tables_equal(ref, t)
 
 
 def test_failing_frame_raises(frames):
     with pytest.raises(ValueError, match="ndim"):
-        series.analyze_series([frames[0], np.ones((2, 2, 2, 2), np.uint8)], background=1)
+        series.analyze_series(
+            [frames[0], np.ones((2, 2, 2, 2), np.uint8)], background=1, devices=["cpu"]
+        )

@@ -44,7 +44,7 @@ def stack64():
 
 
 def _resident(img, **kw):
-    return engine.analyze_stack(LabeledStack.from_array(img, background=1, **kw))
+    return engine.analyze_stack(LabeledStack.from_array(img, background=1, **kw, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def resident64(stack64):
 def test_streamed_equals_resident(stack64, resident64, slab_z):
     # 40 leaves a short last slab; 96 is one slab deeper than the stack
     with timing.collect() as t:
-        got = analyze_streamed(stack64, background=1, slab_z=slab_z)
+        got = analyze_streamed(stack64, background=1, slab_z=slab_z, device="cpu")
     assert_tables_equal(resident64, got)
     slabs = -(-64 // slab_z)
     assert sum(s.name == "stream: slab read+relabel" for s in t.stages) == slabs
@@ -66,7 +66,7 @@ def test_streamed_equals_resident(stack64, resident64, slab_z):
 @pytest.mark.parametrize("slab_z", [40, 96])
 def test_streamed_equals_jax_streamed(stack64, slab_z):
     ref = jstreaming.analyze_streamed(stack64, background=1, slab_z=slab_z, engine="blocked")
-    got = analyze_streamed(stack64, background=1, slab_z=slab_z, engine="blocked")
+    got = analyze_streamed(stack64, background=1, slab_z=slab_z, engine="blocked", device="cpu")
     assert_tables_equal(ref, got)
 
 
@@ -76,12 +76,13 @@ def test_streamed_memmap(tmp_path, stack64, resident64):
     mm[:] = stack64
     mm.flush()
     ro = np.memmap(path, dtype=stack64.dtype, mode="r", shape=stack64.shape)
-    assert_tables_equal(resident64, analyze_streamed(ArraySource(ro), background=1, slab_z=32))
+    got = analyze_streamed(ArraySource(ro), background=1, slab_z=32, device="cpu")
+    assert_tables_equal(resident64, got)
 
 
 def test_streamed_anisotropic_voxelsize(stack64):
     vs = (2.0, 0.5, 0.25)
-    got = analyze_streamed(stack64, background=1, slab_z=32, voxelsize=vs)
+    got = analyze_streamed(stack64, background=1, slab_z=32, voxelsize=vs, device="cpu")
     ref = _resident(stack64, voxelsize=vs)
     assert_tables_equal(ref, got)
     np.testing.assert_array_equal(got.wall_areas(), ref.wall_areas())
@@ -92,7 +93,8 @@ def test_streamed_wide_dtype(stack64, dtype, scale):
     # > 16-bit label values take the searchsorted relabel path
     wide = stack64.astype(dtype) * scale
     wide[stack64 == 1] = 1
-    assert_tables_equal(_resident(wide), analyze_streamed(wide, background=1, slab_z=24))
+    got = analyze_streamed(wide, background=1, slab_z=24, device="cpu")
+    assert_tables_equal(_resident(wide), got)
 
 
 def test_tiled_source_matches_materialized(stack64):
@@ -102,7 +104,8 @@ def test_tiled_source_matches_materialized(stack64):
     assert full.shape == src.shape and full.dtype == src.dtype
     np.testing.assert_array_equal(full, ref_src.read(0, ref_src.shape[0]))
     np.testing.assert_array_equal(src.read(20, 45), full[20:45])
-    assert_tables_equal(_resident(full), analyze_streamed(src, background=1, slab_z=16))
+    got = analyze_streamed(src, background=1, slab_z=16, device="cpu")
+    assert_tables_equal(_resident(full), got)
 
 
 def test_tiled_cell_features_match_base(stack64):
@@ -111,7 +114,7 @@ def test_tiled_cell_features_match_base(stack64):
     base = np.ascontiguousarray(stack64[16:48])
     src = TiledSource(base, (1, 1, 2), background=1)
     t_base = _resident(base)
-    t_tiled = analyze_streamed(src, background=1, slab_z=16)
+    t_tiled = analyze_streamed(src, background=1, slab_z=16, device="cpu")
     checked = 0
     for s, l in enumerate(t_base.ids):
         if t_base.margin[s] or l == 1:
@@ -131,7 +134,7 @@ def test_label_only_at_the_seam():
     img = np.full((32, 16, 16), 1, np.uint16)
     img[:, :, 8:] = 2
     img[15:17, 4:8, 4:8] = 3  # z = 15 | 16 straddles the slab_z = 16 seam
-    got = analyze_streamed(img, background=1, slab_z=16)
+    got = analyze_streamed(img, background=1, slab_z=16, device="cpu")
     assert_tables_equal(_resident(img), got)
     s3 = int(np.nonzero(got.ids == 3)[0][0])
     assert got.count[s3] == 32
@@ -157,15 +160,15 @@ def test_seam_pairs_closed_form():
 
 def test_engine_names(stack64, resident64):
     assert_tables_equal(resident64, analyze_streamed(stack64, background=1, slab_z=32,
-                                                     engine="blocked"))
+                                                     engine="blocked", device="cpu"))
     assert_tables_equal(resident64, analyze_streamed(stack64, background=1, slab_z=32,
-                                                     engine="torch"))
+                                                     engine="torch", device="cpu"))
     # no fallback: the kernel needs a CUDA device
     for name in ("pallas", "cuda"):
         with pytest.raises(ValueError, match="cuda"):
-            analyze_streamed(stack64, background=1, slab_z=32, engine=name)
+            analyze_streamed(stack64, background=1, slab_z=32, engine=name, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        analyze_streamed(stack64, background=1, engine="tpu")
+        analyze_streamed(stack64, background=1, engine="tpu", device="cpu")
 
 
 def test_shift_moments_z_uses_local_s1():

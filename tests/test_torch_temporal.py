@@ -38,7 +38,9 @@ def _one_torch_thread():
 
 
 def _tpg(pkg, name):
-    graphs = [pkg.graph_from_image(f, background=1) for f in FRAMES[name]()]
+    # the port's entry points default to the card: run them on the CPU here
+    kw = {"device": "cpu"} if pkg is P else {}
+    graphs = [pkg.graph_from_image(f, background=1, **kw) for f in FRAMES[name]()]
     return pkg.TemporalPropertyGraph().extend(graphs, LINEAGES[name])
 
 

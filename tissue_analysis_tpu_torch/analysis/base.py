@@ -10,7 +10,8 @@ real=True)``, ``neighbors``, ``boundingbox``, ``center_of_mass``,
 scipy.ndimage full-image pass per feature (SURVEY.md §3.2–3.5).
 
 The pass runs on the ``device`` given to the constructor (default: the
-CPU); ``device="cuda"`` without a CUDA card raises.
+current CUDA device, which raises without a card; ``device="cpu"`` runs
+the plain engine on the CPU).
 """
 
 from __future__ import annotations

@@ -221,8 +221,8 @@ def SpatialImageAnalysis(image, *args, **kwargs):
     2D images → ``SpatialImageAnalysis2D``; 3D → ``SpatialImageAnalysis3D``;
     thin 3D stacks (one axis ≤ 3 voxels) or an ``inside_label=`` kwarg
     (curved-monolayer surface segmentations) → the surfacic ``3DS`` variant.
-    Pass ``variant='3D'|'3DS'|'2D'`` to override, and ``device=`` to run
-    the analysis on a CUDA card (default: the CPU).
+    Pass ``variant='3D'|'3DS'|'2D'`` to override. The analysis runs on
+    ``device=`` (default: the current CUDA device; ``"cpu"`` for the CPU).
     """
     variant = kwargs.pop("variant", "auto")
     arr = np.asarray(image)

@@ -4,7 +4,8 @@ Parity targets: the module-level functions of ``spatial_image_analysis.py``:
 ``dilation``, ``dilation_by``, ``wall``, ``hollow_out_cells``,
 ``sort_boundingbox``, ``distance``. The voxel-heavy ones
 (``hollow_out_cells``, ``wall``) are face stencils in plain PyTorch on an
-explicit ``device`` (default: the CPU).
+explicit ``device`` (default: the current CUDA device; ``"cpu"`` for the
+CPU).
 """
 
 from __future__ import annotations

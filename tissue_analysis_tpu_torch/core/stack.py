@@ -28,8 +28,17 @@ _WIDER = {torch.uint16: torch.int32, torch.uint32: torch.int64, torch.uint64: to
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` → the CPU; a CUDA device must exist (no silent CPU fallback)."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` → the current CUDA device. A CUDA device must exist, whether
+    asked for or defaulted to: without one this raises, and ``device="cpu"``
+    runs the plain engine on the CPU (there is no silent CPU fallback)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device was found (torch.cuda.is_available() is False); '
+                'pass device="cpu" to run the plain engine on the CPU'
+            )
+        return torch.device("cuda")
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} was requested but torch.cuda.is_available() is False"
@@ -136,7 +145,7 @@ class LabeledStack:
         fallback); if ``background`` is present in the image its segment is
         swapped to position 0 so background-aware features (epidermis/L1
         detection) can address it statically. The dense stack then moves to
-        ``device`` (default: the CPU).
+        ``device`` (default: the current CUDA device; ``"cpu"`` for the CPU).
         """
         dev = resolve_device(device)
         arr = np.asarray(image)

@@ -2,72 +2,125 @@
 //
 // Replaces both TPU kernels of tissue_analysis_tpu/ops/pallas_block.py,
 // which share one per-block contract:
-//   - _kernel_factory_v2 (kernel-v2): block 8x16x128, n < 2^16;
-//   - _kernel_factory (kernel-v1): any block shape and label count. It
-//     carries every 2D image (lifted to [1, Y, X], block 1x128x128) and
-//     every label space with n >= 2^16 (int32 labels).
+//   - _kernel_factory_v2 (kernel-v2, line 830): block 8x16x128, n < 2^16;
+//   - _kernel_factory (kernel-v1, line 678): any block shape and label
+//     count. It carries every 2D image (lifted to [1, Y, X], block
+//     1x128x128) and every label space with n >= 2^16 (int32 labels).
 // The TPU's workarounds are not carried over: bf16 one-hot MXU dots, 8-bit
 // value splits, hi/lo split columns, the hashed min/max dictionary chain,
-// extras plane packing, and v1's three globally shifted neighbour copies
-// with its local lo/hi moments rebuilt afterwards in XLA. This card has
-// int64 and shared-memory atomics, and reads the neighbours in place.
+// extras plane packing, and v1's three globally shifted neighbour copies.
 //
-// One CUDA block per voxel block of shape (bz, by, bx) (runtime arguments:
-// 8x16x128 for 3D, 1x128x128 for a lifted 2D image), in z-major block
-// order. Coordinates past the stack's
-// extent read as the dropped label n, so no padded copy of the stack exists.
-// Per block:
+// Contract, per voxel block of shape (bz, by, bx) in z-major block order
+// (every access is masked by coordinate, so no padded copy of the stack
+// exists and no fill value is trusted: any value could be a live label):
 //   1. dictionary: the distinct labels < n of the block's voxels and of the
-//      +1 z/y/x neighbours just past its far faces (read from global
-//      memory), collected in a shared open-addressing hash, then ranked so
-//      slots hold ascending ids (IMAX in empty slots). More than L distinct
-//      labels sets ovf[b]; the rest of that block's outputs is then
-//      undefined and the caller reruns with a larger L.
+//      +1 z/y/x neighbours just past its far faces, collected in a shared
+//      open-addressing hash, then ranked so slots hold ascending ids (IMAX
+//      in empty slots). More than L distinct labels sets ovf[b]; the rest
+//      of that block's outputs is then undefined and the caller reruns with
+//      a larger L.
 //   2. per slot: count, sum z/y/x and the six sum c_i*c_j in LOCAL
-//      coordinates (int32 shared atomics; K * (extent-1)^2 < 2^31 is checked
-//      by the wrapper), bbox min/max; globalized once per slot in int64.
+//      coordinates (int32; K * (extent-1)^2 < 2^31 is checked by the
+//      wrapper, and every partial sum below is a sum over a subset of one
+//      block's voxels), bbox min/max; globalized once per slot in int64.
 //   3. faces[slot(a), d*L + slot(b)] += 1 for every voxel labelled a < n
-//      whose +1 neighbour along axis d is labelled b < n, b != a (so the
-//      same-label diagonal is zero by construction).
+//      whose +1 neighbour along axis d is labelled b < n, b != a, added
+//      into the caller's zeroed [B, L, 3L] buffer.
 //
-// What bounds it on this card: it reads 2 bytes per voxel (uint16 input,
-// ~0.27 GB at 512^3) once from HBM plus neighbour re-reads that hit L1/L2,
-// so the memory floor is well under a millisecond. The likely limit is
-// contention of shared-memory atomics on the few hot slots of a block (a
-// warp's lanes mostly share one label). This first design does nothing
-// about that yet beyond caching the last hash lookup per thread;
-// warp-aggregated atomics are later work.
-//
-// Two face paths, picked at launch (template flag kFacesGlobal):
-//   - shared: the [L, 3L] face matrix sits in shared memory and is copied
-//     out once. L = 128 takes ~207 KB and one block per SM; L above ~135
-//     does not fit.
-//   - global: for such L the face atomics go straight to the block's own
-//     [L, 3L] slice of faces_out, which the caller zeroes first. Shared
-//     memory then holds only the hash, the local moments and the bbox
-//     (2H + 16L + 2 ints), which fits up to L ~ 2600. Dense label spaces
-//     (4^3-voxel cells: ~456 dictionary labels per 8x16x128 block) take
-//     this path; its cost is the dense B * 3L^2 face output itself.
-// The rank step is O(H^2 / threads), H = 2L rounded up to a power of two:
-// at L = 512 that is 1024^2 / 512 = 2,048 compares a thread; at L = 2048
-// (H = 4096) 32,768, which is what bounds the global path in time before
-// shared memory bounds it in size.
+// What bounds it. The bytes, each label read once and each output written
+// once, at 3.35 TB/s (H100 SXM): 0.119 ms at 512^3 uint16 L = 32, 0.015 ms
+// for a 4096^2 image at L = 32, 0.675 ms for the 262,144-label grid at
+// L = 128 and 2.00 ms for the 524,288-label grid at L = 512 (their dense
+// face output, 1.7 and 6.6 GB). The first design took 7.6, 1.0, 5.1 and
+// 3.0 ms there (64x, 68x, 7.6x and 1.5x its bound); this one 1.9, 0.24,
+// 1.9 and 2.8 ms (PERF.md). What held the first back, and what this design
+// does about each:
+//   - 16 shared atomics per voxel on the voxel's slot, while a warp's 32
+//     lanes mostly share one label (32-way serialisation). Now a lane walks
+//     its voxels (up to 4 consecutive x per row, rows of one y in z) as runs
+//     of one slot and sums a run in registers: a voxel adds to the run's
+//     row part (count, sum x, sum x^2, x range), folded into the ten
+//     moments once per row. A run is flushed with plain atomics where its
+//     slot changes (few lanes at a time, on distinct slots); at the end of
+//     a block the open runs are merged over a shuffle tree (equal slots of
+//     neighbouring lanes) before the remaining lanes flush. Face keys
+//     (s, d, t) are counted the same way: lanes holding one key side by
+//     side add their number in one atomic. Dictionary inserts run only at
+//     run starts.
+//   - Two global reads of every voxel with 2-byte loads, plus three
+//     neighbour reads, and a division by the block shape per voxel. Now a
+//     lane reads its four labels in one 8- or 16-byte load where aligned,
+//     the row it loads as the +z neighbour is its next row, the +x
+//     neighbour of its last voxel comes from the next lane by a shuffle,
+//     and loops run over rows and x with no per-voxel division.
+//   - One CTA per voxel block, serial phases with nothing in flight. Now
+//     persistent CTAs, as many as fit (occupancy) times the SMs, walk the
+//     blocks with a stride of the grid; 256 threads a CTA, four CTAs an
+//     SM up to L = 512, so one CTA's barriers overlap the others' work.
+//   - cudaFuncSetAttribute on every launch. Now once per instantiation and
+//     device; occupancies and SM counts are cached.
+// Measured and not kept (PERF.md): staging each block's labels and its
+// halo faces in shared memory with 16-byte cp.async, one or two buffers,
+// was slower than reading through L1 at every shape; warp aggregation with
+// __match_any_sync and __reduce_*_sync on every flush cost more than the
+// atomics it saved; the [L, 3L] face matrix in shared memory (zeroed and
+// copied out per block) was within 2 % at L = 32 and took half again as
+// long at L = 128 as atomics into the zeroed output, so faces always go
+// there.
+// Tensor cores are weighed and not used. The TPU counted faces with one-hot
+// bf16 dots; on Hopper that product is 3*K*L^2 multiply-adds per block,
+// ~0.8e12 operations at 512^3 and L = 32, >= 0.4 ms even at the int8 peak
+// of 1,979 TOP/s: above the 0.119 ms memory bound, and it grows with L^2.
+// The rank step stays O(H^2 / threads), H = 2L rounded up to a power of
+// two (4,096 compares a thread at L = 512).
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kIMax = 0x7fffffff;
 constexpr int kEmpty = -1;
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+constexpr int kMaxDevices = 64;
 
 struct Params {
   int Z, Y, X;
   int bz, by, bx;
   int gy, gx;
+  long long B;
   int L, n, hbits;
+  int chunk;  // x voxels per lane and pass: min(4, ceil(bx / 32))
 };
+
+// One voxel block's place in the stack: origin, the extent of its voxels
+// inside the stack (e*), and that extent plus the +1 neighbour plane past
+// the far face where the stack has one (t*).
+struct Geo {
+  int oz, oy, ox;
+  int ez, ey, ex;
+  int tz, ty, tx;
+};
+
+__device__ __forceinline__ Geo block_geo(const Params& p, long long b) {
+  Geo g;
+  const long long r = b / p.gx;
+  g.ox = static_cast<int>(b - r * p.gx) * p.bx;
+  g.oy = static_cast<int>(r % p.gy) * p.by;
+  g.oz = static_cast<int>(r / p.gy) * p.bz;
+  g.ez = min(p.bz, p.Z - g.oz);
+  g.ey = min(p.by, p.Y - g.oy);
+  g.ex = min(p.bx, p.X - g.ox);
+  g.tz = g.ez + (g.oz + p.bz < p.Z ? 1 : 0);
+  g.ty = g.ey + (g.oy + p.by < p.Y ? 1 : 0);
+  g.tx = g.ex + (g.ox + p.bx < p.X ? 1 : 0);
+  return g;
+}
 
 __device__ __forceinline__ unsigned hash_pos(int key, int hbits) {
   return (static_cast<unsigned>(key) * 2654435761u) >> (32 - hbits);
@@ -105,19 +158,160 @@ __device__ __forceinline__ int dict_slot(const int* keys, const int* slots,
   return -1;
 }
 
-template <typename T>
-__device__ __forceinline__ int load_label(const T* __restrict__ dense,
-                                          int64_t g) {
-  return static_cast<int>(__ldg(dense + g));
-}
-
 // a label takes part iff 0 <= v < n (unsigned compare)
 __device__ __forceinline__ bool live(int v, int n) {
   return static_cast<unsigned>(v) < static_cast<unsigned>(n);
 }
 
-template <typename T, bool kFacesGlobal>
-__global__ void __launch_bounds__(kThreads)
+// v[c] = the label at x0 + c of the row at q, for c < chunk and
+// x0 + c < lim, else kEmpty. Four aligned labels come in one 8- or 16-byte
+// load through L1.
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* q, int x0, int chunk,
+                                           int lim, int (&v)[4]) {
+  q += x0;
+  if (chunk == 4 && x0 + 4 <= lim &&
+      (reinterpret_cast<uintptr_t>(q) & (4 * sizeof(T) - 1)) == 0) {
+    if constexpr (sizeof(T) == 2) {
+      const ushort4 u = __ldg(reinterpret_cast<const ushort4*>(q));
+      v[0] = u.x;
+      v[1] = u.y;
+      v[2] = u.z;
+      v[3] = u.w;
+    } else {
+      const int4 u = __ldg(reinterpret_cast<const int4*>(q));
+      v[0] = u.x;
+      v[1] = u.y;
+      v[2] = u.z;
+      v[3] = u.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    v[c] = (c < chunk && x0 + c < lim) ? static_cast<int>(__ldg(q + c)) : kEmpty;
+  }
+}
+
+// A lane's run: the moments and bbox of its voxels of one slot. A voxel
+// adds to the run's part in the current row (count, sum x, sum x^2, x
+// range); fold() adds that part to the moments at the row's (z, y).
+struct Run {
+  int s;  // slot, or -1 (no run)
+  int m[10];
+  int lo[3], hi[3];
+  int rk, rsx, rsxx, rxlo, rxhi;
+
+  __device__ __forceinline__ void reset() {
+    s = -1;
+#pragma unroll
+    for (int q = 0; q < 10; ++q) m[q] = 0;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = kIMax;
+      hi[d] = -1;
+    }
+    rk = rsx = rsxx = 0;
+    rxlo = kIMax;
+    rxhi = -1;
+  }
+  __device__ __forceinline__ void add(int x) {
+    ++rk;
+    rsx += x;
+    rsxx += x * x;
+    rxlo = min(rxlo, x);
+    rxhi = max(rxhi, x);
+  }
+  __device__ __forceinline__ void fold(int z, int y) {
+    if (rk == 0) return;
+    m[0] += rk;
+    m[1] += rk * z;
+    m[2] += rk * y;
+    m[3] += rsx;
+    m[4] += rk * z * z;
+    m[5] += rk * z * y;
+    m[6] += z * rsx;
+    m[7] += rk * y * y;
+    m[8] += y * rsx;
+    m[9] += rsxx;
+    lo[0] = min(lo[0], z);
+    hi[0] = max(hi[0], z);
+    lo[1] = min(lo[1], y);
+    hi[1] = max(hi[1], y);
+    lo[2] = min(lo[2], rxlo);
+    hi[2] = max(hi[2], rxhi);
+    rk = rsx = rsxx = 0;
+    rxlo = kIMax;
+    rxhi = -1;
+  }
+};
+
+// Add a folded run to the block's shared moments and bbox, and reset it.
+__device__ __forceinline__ void flush_run(Run& run, int* acc, int* bmin,
+                                          int* bmax) {
+  int* m = acc + 10 * run.s;
+#pragma unroll
+  for (int q = 0; q < 10; ++q) {
+    if (run.m[q] != 0) atomicAdd(&m[q], run.m[q]);
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    atomicMin(&bmin[3 * run.s + d], run.lo[d]);
+    atomicMax(&bmax[3 * run.s + d], run.hi[d]);
+  }
+  run.reset();
+}
+
+// The folded runs still open at the end of a block (every lane has one):
+// merged over a shuffle tree first (at level o, lane l takes lane l+o's run
+// when l is a multiple of 2o and both hold the same slot; the lanes of a
+// slot are mostly neighbours, since a warp's lanes hold consecutive x),
+// then the lanes that were not taken flush what they hold.
+__device__ __forceinline__ void warp_flush_all(Run& run, int* acc, int* bmin,
+                                               int* bmax, int lane) {
+  bool taken = false;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int other = __shfl_down_sync(kFull, run.s, o);
+    const int left = __shfl_up_sync(kFull, run.s, o);
+    const bool recv = (lane & (2 * o - 1)) == 0 && run.s >= 0 && other == run.s;
+    if ((lane & (2 * o - 1)) == o && run.s >= 0 && left == run.s) taken = true;
+#pragma unroll
+    for (int q = 0; q < 10; ++q) {
+      const int v = __shfl_down_sync(kFull, run.m[q], o);
+      if (recv) run.m[q] += v;
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int lo = __shfl_down_sync(kFull, run.lo[d], o);
+      const int hi = __shfl_down_sync(kFull, run.hi[d], o);
+      if (recv) {
+        run.lo[d] = min(run.lo[d], lo);
+        run.hi[d] = max(run.hi[d], hi);
+      }
+    }
+  }
+  if (!taken && run.s >= 0) flush_run(run, acc, bmin, bmax);
+  run.reset();
+}
+
+// Add the faces whose key >= 0 (called by all 32 lanes). Lanes holding one
+// key side by side count as one atomic of their number; the first lane of
+// each such stretch adds it.
+__device__ __forceinline__ void warp_faces(int key, int* fc, int lane) {
+  if (!__any_sync(kFull, key >= 0)) return;
+  const int left = __shfl_up_sync(kFull, key, 1);
+  const bool start = lane == 0 || key != left;
+  const unsigned starts = __ballot_sync(kFull, start);
+  if (start && key >= 0) {
+    const unsigned above = starts & ~((2u << lane) - 1u);
+    const int next = above ? __ffs(above) - 1 : 32;
+    atomicAdd(&fc[key], next - lane);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
 block_sweep_kernel(const T* __restrict__ dense, Params p,
                    int* __restrict__ ids_out, long long* __restrict__ mom_out,
                    int* __restrict__ gmin_out, int* __restrict__ gmax_out,
@@ -126,199 +320,210 @@ block_sweep_kernel(const T* __restrict__ dense, Params p,
   const int L = p.L;
   const int n = p.n;
   const int H = 1 << p.hbits;
-  int* hkeys = smem;            // [H]
-  int* hslot = hkeys + H;       // [H]
-  int* acc = hslot + H;         // [L, 10] local moments
-  int* bmin = acc + 10 * L;     // [L, 3]
-  int* bmax = bmin + 3 * L;     // [L, 3]
-  const int64_t b = blockIdx.x;
-  // [L, 3L] face counts: shared, or this block's slice of faces_out
-  int* fc = kFacesGlobal ? faces_out + b * 3 * L * L : bmax + 3 * L;
-  // ndistinct, full
-  int* misc = kFacesGlobal ? bmax + 3 * L : bmax + 3 * L + 3 * L * L;
+  int* hkeys = smem;         // [H]
+  int* hslot = hkeys + H;    // [H]
+  int* acc = hslot + H;      // [L, 10] local moments
+  int* bmin = acc + 10 * L;  // [L, 3]
+  int* bmax = bmin + 3 * L;  // [L, 3]
+  int* misc = bmax + 3 * L;  // ndistinct, full
 
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int bxi = static_cast<int>(b % p.gx);
-  const int byi = static_cast<int>((b / p.gx) % p.gy);
-  const int bzi = static_cast<int>(b / (static_cast<int64_t>(p.gx) * p.gy));
-  const int oz = bzi * p.bz, oy = byi * p.by, ox = bxi * p.bx;
-  const int64_t sy = p.X;
-  const int64_t sz = static_cast<int64_t>(p.Y) * p.X;
-  const int K = p.bz * p.by * p.bx;
-  const int byx = p.by * p.bx;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int chunk = p.chunk;
+  const long long sz = static_cast<long long>(p.Y) * p.X;
 
-  for (int i = tid; i < H; i += nt) {
-    hkeys[i] = kEmpty;
-    hslot[i] = -1;
-  }
-  for (int i = tid; i < 10 * L; i += nt) acc[i] = 0;
-  for (int i = tid; i < 3 * L; i += nt) {
-    bmin[i] = kIMax;
-    bmax[i] = -1;
-  }
-  if (!kFacesGlobal) {
-    for (int i = tid; i < 3 * L * L; i += nt) fc[i] = 0;
-  }
-  if (tid == 0) {
-    misc[0] = 0;
-    misc[1] = 0;
-  }
-  __syncthreads();
+  for (long long b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const Geo g = block_geo(p, b);
+    // the block's (0, 0, 0) voxel, and the start of its row (lz, ly)
+    const T* base = dense + g.oz * sz + static_cast<long long>(g.oy) * p.X + g.ox;
+    auto row = [&](int lz, int ly) {
+      return base + lz * sz + static_cast<long long>(ly) * p.X;
+    };
+    // x passes of 32 lanes x chunk voxels over the block's extent
+    const int npass = (g.ex + 32 * chunk - 1) / (32 * chunk);
+    int* fc = faces_out + b * 3 * L * L;
 
-  // ---- 1. dictionary: the block's voxels ...
-  int last = kEmpty;
-  for (int i = tid; i < K; i += nt) {
-    const int lx = i % p.bx;
-    const int ly = (i / p.bx) % p.by;
-    const int lz = i / byx;
-    const int z = oz + lz, y = oy + ly, x = ox + lx;
-    if (z >= p.Z || y >= p.Y || x >= p.X) continue;
-    const int v = load_label(dense, z * sz + y * sy + x);
-    if (live(v, n) && v != last) {
-      dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
-      last = v;
+    // ---- reset the block's shared state
+    for (int i = tid; i < H; i += kThreads) {
+      hkeys[i] = kEmpty;
+      hslot[i] = -1;
     }
-  }
-  // ... and the +1 neighbours past its far z, y and x faces (a neighbour
-  // label absent from the block itself still needs a slot, or its face
-  // pair would vanish)
-  if (oz + p.bz < p.Z) {
-    const int z = oz + p.bz;
-    for (int i = tid; i < byx; i += nt) {
-      const int y = oy + i / p.bx, x = ox + i % p.bx;
-      if (y >= p.Y || x >= p.X) continue;
-      const int v = load_label(dense, z * sz + y * sy + x);
-      if (live(v, n)) dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
+    for (int i = tid; i < 10 * L; i += kThreads) acc[i] = 0;
+    for (int i = tid; i < 3 * L; i += kThreads) {
+      bmin[i] = kIMax;
+      bmax[i] = -1;
     }
-  }
-  if (oy + p.by < p.Y) {
-    const int y = oy + p.by;
-    for (int i = tid; i < p.bz * p.bx; i += nt) {
-      const int z = oz + i / p.bx, x = ox + i % p.bx;
-      if (z >= p.Z || x >= p.X) continue;
-      const int v = load_label(dense, z * sz + y * sy + x);
-      if (live(v, n)) dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
+    if (tid == 0) {
+      misc[0] = 0;
+      misc[1] = 0;
     }
-  }
-  if (ox + p.bx < p.X) {
-    const int x = ox + p.bx;
-    for (int i = tid; i < p.bz * p.by; i += nt) {
-      const int z = oz + i / p.by, y = oy + i % p.by;
-      if (z >= p.Z || y >= p.Y) continue;
-      const int v = load_label(dense, z * sz + y * sy + x);
-      if (live(v, n)) dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // ---- rank: slot = number of smaller keys, so slots ascend by id
-  const int nd = misc[0];
-  if (tid == 0) ovf_out[b] = (nd > L || misc[1]) ? 1 : 0;
-  for (int h = tid; h < H; h += nt) {
-    const int k = hkeys[h];
-    if (k == kEmpty) continue;
-    int r = 0;
-    for (int j = 0; j < H; ++j) {
-      const int o = hkeys[j];
-      r += (o != kEmpty && o < k) ? 1 : 0;
-    }
-    if (r < L) {
-      hslot[h] = r;
-      ids_out[b * L + r] = k;
-    }
-  }
-  for (int s = nd + tid; s < L; s += nt) ids_out[b * L + s] = kIMax;
-  __syncthreads();
-
-  // ---- 2+3. moments, bbox and faces
-  int last_v = kEmpty, last_s = -1;
-  for (int i = tid; i < K; i += nt) {
-    const int lx = i % p.bx;
-    const int ly = (i / p.bx) % p.by;
-    const int lz = i / byx;
-    const int z = oz + lz, y = oy + ly, x = ox + lx;
-    if (z >= p.Z || y >= p.Y || x >= p.X) continue;
-    const int64_t g = z * sz + y * sy + x;
-    const int a = load_label(dense, g);
-    if (!live(a, n)) continue;
-    if (a != last_v) {
-      last_v = a;
-      last_s = dict_slot(hkeys, hslot, a, p.hbits);
-    }
-    const int s = last_s;
-    if (s < 0) continue;
-    int* m = acc + 10 * s;
-    atomicAdd(&m[0], 1);
-    atomicAdd(&m[1], lz);
-    atomicAdd(&m[2], ly);
-    atomicAdd(&m[3], lx);
-    atomicAdd(&m[4], lz * lz);
-    atomicAdd(&m[5], lz * ly);
-    atomicAdd(&m[6], lz * lx);
-    atomicAdd(&m[7], ly * ly);
-    atomicAdd(&m[8], ly * lx);
-    atomicAdd(&m[9], lx * lx);
-    atomicMin(&bmin[3 * s + 0], lz);
-    atomicMin(&bmin[3 * s + 1], ly);
-    atomicMin(&bmin[3 * s + 2], lx);
-    atomicMax(&bmax[3 * s + 0], lz);
-    atomicMax(&bmax[3 * s + 1], ly);
-    atomicMax(&bmax[3 * s + 2], lx);
-
-    int* row = fc + 3 * L * s;
-    if (z + 1 < p.Z) {
-      const int c = load_label(dense, g + sz);
-      if (c != a && live(c, n)) {
-        const int t = dict_slot(hkeys, hslot, c, p.hbits);
-        if (t >= 0) atomicAdd(&row[t], 1);
+    // ---- 1. dictionary: the rows of the block and of its +z plane and +y
+    // row (x < ex), and the +x column of the block's own rows (a neighbour
+    // label absent from the block itself still needs a slot, or its face
+    // pair would vanish). A label equal to the voxel on its left is
+    // inserted by the lane holding that voxel, or was already.
+    {
+      int last = kEmpty;
+      for (int ly = warp; ly < g.ty; ly += kWarps) {
+        for (int pass = 0; pass < npass; ++pass) {
+          const int x0 = (pass * 32 + lane) * chunk;
+          for (int lz = 0; lz < g.tz; ++lz) {
+            if (lz == p.bz && ly == p.by) continue;  // never a neighbour
+            int v[4];
+            load_chunk(row(lz, ly), x0, chunk, g.ex, v);
+            const int tail =
+                chunk == 4 ? v[3] : chunk == 3 ? v[2] : chunk == 2 ? v[1] : v[0];
+            const int left = __shfl_up_sync(kFull, tail, 1);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int prev =
+                  c == 0 ? (lane == 0 ? kEmpty : left) : v[c > 0 ? c - 1 : 0];
+              if (live(v[c], n) && v[c] != prev && v[c] != last)
+                dict_insert(hkeys, v[c], p.hbits, &misc[0], &misc[1]);
+              if (live(v[c], n)) last = v[c];
+            }
+          }
+        }
+        if (lane == 0 && g.tx > g.ex && ly < g.ey) {
+          for (int lz = 0; lz < g.ez; ++lz) {
+            const int v = __ldg(row(lz, ly) + g.ex);
+            if (live(v, n)) dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
+          }
+        }
       }
     }
-    if (y + 1 < p.Y) {
-      const int c = load_label(dense, g + sy);
-      if (c != a && live(c, n)) {
-        const int t = dict_slot(hkeys, hslot, c, p.hbits);
-        if (t >= 0) atomicAdd(&row[L + t], 1);
-      }
-    }
-    if (x + 1 < p.X) {
-      const int c = load_label(dense, g + 1);
-      if (c != a && live(c, n)) {
-        const int t = dict_slot(hkeys, hslot, c, p.hbits);
-        if (t >= 0) atomicAdd(&row[2 * L + t], 1);
-      }
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // ---- globalize once per slot, in int64:
-  // sum c_g = s_c + C*o_c;  S_ij,g = S_ij + o_i*s_j + o_j*s_i + C*o_i*o_j
-  const long long o[3] = {oz, oy, ox};
-  for (int s = tid; s < L; s += nt) {
-    const int* m = acc + 10 * s;
-    const long long C = m[0];
-    const long long s1[3] = {m[1], m[2], m[3]};
-    long long* out = mom_out + (b * L + s) * 10;
-    out[0] = C;
-    for (int d = 0; d < 3; ++d) out[1 + d] = s1[d] + C * o[d];
-    // tri_pairs order: zz, zy, zx, yy, yx, xx
-    const int pi[6] = {0, 0, 0, 1, 1, 2};
-    const int pj[6] = {0, 1, 2, 1, 2, 2};
-    for (int q = 0; q < 6; ++q) {
-      const int i = pi[q], j = pj[q];
-      out[4 + q] = static_cast<long long>(m[4 + q]) + o[i] * s1[j] +
-                   o[j] * s1[i] + C * o[i] * o[j];
+    // ---- rank: slot = number of smaller keys, so slots ascend by id
+    const int nd = misc[0];
+    if (tid == 0) ovf_out[b] = (nd > L || misc[1]) ? 1 : 0;
+    for (int h = tid; h < H; h += kThreads) {
+      const int k = hkeys[h];
+      if (k == kEmpty) continue;
+      int r = 0;
+      for (int j = 0; j < H; ++j) {
+        const int o = hkeys[j];
+        r += (o != kEmpty && o < k) ? 1 : 0;
+      }
+      if (r < L) {
+        hslot[h] = r;
+        ids_out[b * L + r] = k;
+      }
     }
-    for (int d = 0; d < 3; ++d) {
-      const int lo = bmin[3 * s + d], hi = bmax[3 * s + d];
-      gmin_out[(b * L + s) * 3 + d] =
-          lo == kIMax ? kIMax : lo + static_cast<int>(o[d]);
-      gmax_out[(b * L + s) * 3 + d] = hi < 0 ? -1 : hi + static_cast<int>(o[d]);
+    for (int s = nd + tid; s < L; s += kThreads) ids_out[b * L + s] = kIMax;
+    __syncthreads();
+
+    // ---- 2+3. moments and bbox by runs, faces by key. A warp walks the
+    // rows of one y in z, so the +z row it loads is its next row.
+    {
+      Run run;
+      run.reset();
+      int last_a = kEmpty, last_sa = -1, last_c = kEmpty, last_t = -1;
+      for (int ly = warp; ly < g.ey; ly += kWarps) {
+        const bool yn = ly + 1 < g.ty;
+        for (int pass = 0; pass < npass; ++pass) {
+          const int x0 = (pass * 32 + lane) * chunk;
+          int a4[4], z4[4], y4[4];
+          load_chunk(row(0, ly), x0, chunk, g.tx, a4);
+          for (int lz = 0; lz < g.ez; ++lz) {
+            if (lz + 1 < g.tz) {
+              load_chunk(row(lz + 1, ly), x0, chunk, g.tx, z4);
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) z4[c] = kEmpty;
+            }
+            if (yn) {
+              load_chunk(row(lz, ly + 1), x0, chunk, g.tx, y4);
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) y4[c] = kEmpty;
+            }
+            // +x neighbour of the lane's last voxel: the next lane's first,
+            // or for lane 31 the next pass's first or the x halo
+            int xh = __shfl_down_sync(kFull, a4[0], 1);
+            if (lane == 31) {
+              const int xn = x0 + chunk;
+              xh = xn < g.tx ? static_cast<int>(__ldg(row(lz, ly) + xn)) : kEmpty;
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (c >= chunk) break;
+              const int x = x0 + c;
+              const int a = x < g.ex ? a4[c] : kEmpty;
+              int s = -1;
+              if (live(a, n)) {
+                if (a != last_a) {
+                  last_a = a;
+                  last_sa = dict_slot(hkeys, hslot, a, p.hbits);
+                }
+                s = last_sa;
+              }
+              int kz = -1, ky = -1, kx = -1;
+              if (s >= 0) {
+                if (s != run.s) {
+                  run.fold(lz, ly);
+                  if (run.s >= 0) flush_run(run, acc, bmin, bmax);
+                  run.s = s;
+                }
+                run.add(x);
+                auto face = [&](int v, int d) -> int {
+                  if (v == a || !live(v, n)) return -1;
+                  if (v != last_c) {
+                    last_c = v;
+                    last_t = dict_slot(hkeys, hslot, v, p.hbits);
+                  }
+                  return last_t < 0 ? -1 : (s * 3 + d) * L + last_t;
+                };
+                kz = face(z4[c], 0);
+                ky = face(y4[c], 1);
+                kx = face(c < 3 && c + 1 < chunk ? a4[c < 3 ? c + 1 : 3] : xh, 2);
+              }
+              if (__any_sync(kFull, (kz & ky & kx) != -1)) {
+                warp_faces(kz, fc, lane);
+                warp_faces(ky, fc, lane);
+                warp_faces(kx, fc, lane);
+              }
+            }
+            run.fold(lz, ly);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a4[c] = z4[c];
+          }
+        }
+      }
+      warp_flush_all(run, acc, bmin, bmax, lane);
     }
-  }
-  if (!kFacesGlobal) {
-    int* fout = faces_out + b * 3 * L * L;
-    for (int i = tid; i < 3 * L * L; i += nt) fout[i] = fc[i];
+    __syncthreads();
+
+    // ---- globalize once per slot, in int64:
+    // sum c_g = s_c + C*o_c;  S_ij,g = S_ij + o_i*s_j + o_j*s_i + C*o_i*o_j
+    const long long o[3] = {g.oz, g.oy, g.ox};
+    for (int s = tid; s < L; s += kThreads) {
+      const int* m = acc + 10 * s;
+      const long long C = m[0];
+      const long long s1[3] = {m[1], m[2], m[3]};
+      long long* out = mom_out + (b * L + s) * 10;
+      out[0] = C;
+      for (int d = 0; d < 3; ++d) out[1 + d] = s1[d] + C * o[d];
+      // tri_pairs order: zz, zy, zx, yy, yx, xx
+      const int pi[6] = {0, 0, 0, 1, 1, 2};
+      const int pj[6] = {0, 1, 2, 1, 2, 2};
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const int i = pi[q], j = pj[q];
+        out[4 + q] = static_cast<long long>(m[4 + q]) + o[i] * s1[j] +
+                     o[j] * s1[i] + C * o[i] * o[j];
+      }
+      for (int d = 0; d < 3; ++d) {
+        const int lo = bmin[3 * s + d], hi = bmax[3 * s + d];
+        gmin_out[(b * L + s) * 3 + d] =
+            lo == kIMax ? kIMax : lo + static_cast<int>(o[d]);
+        gmax_out[(b * L + s) * 3 + d] = hi < 0 ? -1 : hi + static_cast<int>(o[d]);
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -328,45 +533,80 @@ int hash_bits(int L) {
   return bits;
 }
 
-template <typename T, bool kFacesGlobal>
-cudaError_t launch(const void* dense, const Params& p, unsigned B, size_t smem,
-                   cudaStream_t st, void* ids, void* mom, void* gmin,
-                   void* gmax, void* faces, void* ovf) {
-  cudaError_t err = cudaFuncSetAttribute(
-      block_sweep_kernel<T, kFacesGlobal>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// bytes of a block's shared state: hash, moments, bbox, two counters
+long long smem_bytes(int L) {
+  const long long H = 1LL << hash_bits(L);
+  return (2 * H + 16LL * L + 2) * static_cast<long long>(sizeof(int));
+}
+
+// ---------------------------------------------------------------- host side
+const void* kernel_of(int is_int32) {
+  return is_int32
+             ? reinterpret_cast<const void*>(&block_sweep_kernel<int>)
+             : reinterpret_cast<const void*>(&block_sweep_kernel<unsigned short>);
+}
+
+// per instantiation, a bit per device whose attribute is set
+std::atomic<unsigned long long> g_attr_set[2];
+std::mutex g_cache_mu;
+int g_sms[kMaxDevices];
+struct OccEntry {
+  int dev, is_int32, smem, ctas;
+};
+OccEntry g_occ[64];
+int g_nocc = 0;
+
+// The SMs of device dev and the CTAs an SM holds at smem bytes. Sets the
+// dynamic shared-memory ceiling of the instantiation once per device; both
+// answers are cached.
+cudaError_t occupancy(int dev, int is_int32, int smem, int* ctas, int* sms) {
+  const unsigned long long bit = 1ULL << dev;
+  if (!(g_attr_set[is_int32].load(std::memory_order_acquire) & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel_of(is_int32), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    g_attr_set[is_int32].fetch_or(bit, std::memory_order_release);
+  }
+  std::lock_guard<std::mutex> lock(g_cache_mu);
+  if (g_sms[dev] == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = g_sms[dev];
+  const int cached = g_nocc < 64 ? g_nocc : 64;
+  for (int i = 0; i < cached; ++i) {
+    const OccEntry& e = g_occ[i];
+    if (e.dev == dev && e.is_int32 == is_int32 && e.smem == smem) {
+      *ctas = e.ctas;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, kernel_of(is_int32), kThreads, static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
-  block_sweep_kernel<T, kFacesGlobal><<<B, kThreads, smem, st>>>(
-      static_cast<const T*>(dense), p, static_cast<int*>(ids),
-      static_cast<long long*>(mom), static_cast<int*>(gmin),
-      static_cast<int*>(gmax), static_cast<int*>(faces),
-      static_cast<int*>(ovf));
-  return cudaGetLastError();
+  if (*ctas < 1) return cudaErrorInvalidConfiguration;
+  g_occ[g_nocc % 64] = OccEntry{dev, is_int32, smem, *ctas};
+  ++g_nocc;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory (bytes) one block needs at dictionary size L, with
-// the face matrix in shared memory (faces_global == 0) or in faces_out.
-long long ta_block_sweep_smem_bytes(int L, int faces_global) {
-  const long long H = 1LL << hash_bits(L);
-  const long long fc = faces_global ? 0 : 3LL * L * L;
-  return (2 * H + 16LL * L + fc + 2) * static_cast<long long>(sizeof(int));
-}
+// Dynamic shared memory (bytes) of one block's state at dictionary size L.
+long long ta_block_sweep_smem_bytes(int L) { return smem_bytes(L); }
 
 // dense: [Z, Y, X] uint16 (is_int32 == 0) or int32, contiguous, on the device.
-// Outputs (allocated by the caller; every element written here, except that
-// with faces_global != 0 the kernel adds into faces, which the caller must
-// have zeroed on the same stream):
-//   ids int32 [B, L], mom int64 [B, L, 10], gmin/gmax int32 [B, L, 3],
-//   faces int32 [B, L, 3L], ovf int32 [B].
-// Launches on `stream`, does not synchronise; returns cudaGetLastError().
+// Outputs (allocated by the caller): ids int32 [B, L], mom int64 [B, L, 10],
+// gmin/gmax int32 [B, L, 3] and ovf int32 [B] are written here; the kernel
+// adds into faces int32 [B, L, 3L], which the caller zeroes on the same
+// stream first. Launches on `stream`, does not synchronise; returns
+// cudaGetLastError().
 int ta_block_sweep(const void* dense, int is_int32, int Z, int Y, int X,
-                   int bz, int by, int bx, int L, int n, int faces_global,
-                   void* ids, void* mom, void* gmin, void* gmax, void* faces,
-                   void* ovf, void* stream) {
+                   int bz, int by, int bx, int L, int n, void* ids, void* mom,
+                   void* gmin, void* gmax, void* faces, void* ovf, void* stream) {
   Params p;
   p.Z = Z;
   p.Y = Y;
@@ -377,30 +617,27 @@ int ta_block_sweep(const void* dense, int is_int32, int Z, int Y, int X,
   const int gz = (Z + bz - 1) / bz;
   p.gy = (Y + by - 1) / by;
   p.gx = (X + bx - 1) / bx;
+  p.B = static_cast<long long>(gz) * p.gy * p.gx;
   p.L = L;
   p.n = n;
   p.hbits = hash_bits(L);
-  const long long B = static_cast<long long>(gz) * p.gy * p.gx;
-  if (B == 0) return 0;
-  const size_t smem =
-      static_cast<size_t>(ta_block_sweep_smem_bytes(L, faces_global));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = static_cast<unsigned>(B);
-  cudaError_t err;
-  if (is_int32) {
-    err = faces_global
-              ? launch<int, true>(dense, p, nb, smem, st, ids, mom, gmin, gmax,
-                                  faces, ovf)
-              : launch<int, false>(dense, p, nb, smem, st, ids, mom, gmin,
-                                   gmax, faces, ovf);
-  } else {
-    err = faces_global
-              ? launch<unsigned short, true>(dense, p, nb, smem, st, ids, mom,
-                                             gmin, gmax, faces, ovf)
-              : launch<unsigned short, false>(dense, p, nb, smem, st, ids,
-                                              mom, gmin, gmax, faces, ovf);
-  }
-  return static_cast<int>(err);
+  p.chunk = (bx + 31) / 32 < 4 ? (bx + 31) / 32 : 4;
+  if (p.B == 0) return 0;
+  int dev = 0, ctas = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const int smem = static_cast<int>(smem_bytes(L));
+  err = occupancy(dev, is_int32, smem, &ctas, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long want = static_cast<long long>(ctas) * sms;
+  const unsigned grid = static_cast<unsigned>(p.B < want ? p.B : want);
+  void* args[] = {static_cast<void*>(&dense), &p, &ids, &mom, &gmin, &gmax,
+                  &faces, &ovf};
+  err = cudaLaunchKernel(kernel_of(is_int32), dim3(grid), dim3(kThreads), args,
+                         static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -266,7 +266,8 @@ def analyze(
     engine: str = "auto",
 ) -> FeatureTable:
     """Analyze a labeled image (host array / SpatialImage) in one fused pass
-    on ``device`` (default: the CPU)."""
+    on ``device`` (default: the current CUDA device; ``"cpu"`` runs the
+    plain engine on the CPU)."""
     stack = LabeledStack.from_array(
         image, voxelsize=voxelsize, background=background, device=device
     )

@@ -31,10 +31,11 @@ or int32) at run time and serves both. For every block of shape ``block``
 CUDA tensor and runs :func:`block_sweep_reference` for a CPU tensor; it
 never falls back from one to the other. The kernel is compiled with nvcc on
 first use into ``build/kernels/`` beside the package and loaded with ctypes.
-It keeps the [L, 3L] face matrix in shared memory while that fits (L up to
-~135) and adds into a zeroed ``faces`` in device memory above that, up to
-:func:`max_dict_size`. On a CUDA device both versions raise ``ValueError``,
-not a bare out-of-memory error, for a ``faces`` the device cannot hold.
+Its persistent CTAs walk the blocks, sum each lane's runs of one label in
+registers before any atomic, and add the face counts into a zeroed
+``faces`` in device memory, for any L up to :func:`max_dict_size`. On a
+CUDA device both versions raise ``ValueError``, not a bare out-of-memory
+error, for a ``faces`` the device cannot hold.
 """
 
 from __future__ import annotations
@@ -155,9 +156,9 @@ def build_kernel() -> ctypes.CDLL:
                 os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ta_block_sweep.argtypes = [vp] + [ci] * 10 + [vp] * 7
+        lib.ta_block_sweep.argtypes = [vp] + [ci] * 9 + [vp] * 7
         lib.ta_block_sweep.restype = ci
-        lib.ta_block_sweep_smem_bytes.argtypes = [ci, ci]
+        lib.ta_block_sweep_smem_bytes.argtypes = [ci]
         lib.ta_block_sweep_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
         return lib
@@ -166,27 +167,24 @@ def build_kernel() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def max_dict_size() -> int:
     """Largest dictionary size L the kernel takes: the one whose block state
-    (hash, local moments, bbox; faces in device memory) fits shared memory."""
+    (hash, local moments, bbox) fits shared memory."""
     smem = build_kernel().ta_block_sweep_smem_bytes
     L = 1
-    while smem(L + 1, 1) <= _MAX_SMEM:
+    while smem(L + 1) <= _MAX_SMEM:
         L += 1
     return L
 
 
-def _faces_buffer(
-    B: int, L: int, block, dev: torch.device, zeroed: bool = True
-) -> torch.Tensor:
-    """int32 [B, L, 3L], zeroed or not; a ``ValueError`` naming the bytes
-    and the block when the device cannot hold them (rather than a bare
+def _faces_buffer(B: int, L: int, block, dev: torch.device) -> torch.Tensor:
+    """Zeroed int32 [B, L, 3L]; a ``ValueError`` naming the bytes and the
+    block when the device cannot hold them (rather than a bare
     out-of-memory error from the allocator).
 
     The allocator itself decides: asking first (``torch.cuda.memory_stats``,
     ``cudaMemGetInfo``) made back-to-back launches 0.02-0.04 ms slower
     each on an H100."""
-    alloc = torch.zeros if zeroed else torch.empty
     try:
-        return alloc((B, L, 3 * L), dtype=torch.int32, device=dev)
+        return torch.zeros((B, L, 3 * L), dtype=torch.int32, device=dev)
     except torch.cuda.OutOfMemoryError:
         free = torch.cuda.mem_get_info(dev)[0]
         raise ValueError(
@@ -208,14 +206,13 @@ def block_sweep(dense: torch.Tensor, n: int, block=DEFAULT_BLOCK, L: int = 32) -
         return block_sweep_reference(dense, n, block, L)
     if dense.device.type != "cuda":
         raise ValueError(f"unsupported device {dense.device}")
-    lib = build_kernel()
-    return _launch(lib, dense, n, block, L, lib.ta_block_sweep_smem_bytes(L, 0) > _MAX_SMEM)
+    return _launch(build_kernel(), dense, n, block, L)
 
 
-def _launch(lib, dense, n, block, L, faces_global: bool) -> SweepOut:
-    """Launch the kernel with the face matrix in shared memory or (when
-    ``faces_global``) in a zeroed device buffer."""
-    if lib.ta_block_sweep_smem_bytes(L, int(faces_global)) > _MAX_SMEM:
+def _launch(lib, dense, n, block, L) -> SweepOut:
+    """Launch the kernel: it writes ids, mom, gmin, gmax and ovf, and adds
+    the face counts into a zeroed device buffer."""
+    if lib.ta_block_sweep_smem_bytes(L) > _MAX_SMEM:
         raise ValueError(
             f"dictionary size L={L} exceeds the kernel's shared-memory bound "
             f"(max {max_dict_size()})"
@@ -230,15 +227,14 @@ def _launch(lib, dense, n, block, L, faces_global: bool) -> SweepOut:
         mom=torch.empty((B, L, 10), dtype=torch.int64, device=dev),
         gmin=torch.empty((B, L, 3), **i32),
         gmax=torch.empty((B, L, 3), **i32),
-        # the kernel adds into a global face matrix, or writes all of it
-        faces=_faces_buffer(B, L, block, dev, zeroed=faces_global),
+        faces=_faces_buffer(B, L, block, dev),
         ovf=torch.empty((B,), **i32),
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ta_block_sweep(
             dense.data_ptr(), int(dense.dtype == torch.int32), Z, Y, X,
-            *block, L, n, int(faces_global), *(t.data_ptr() for t in out), stream,
+            *block, L, n, *(t.data_ptr() for t in out), stream,
         )
     if err != 0:
         raise RuntimeError(f"block_sweep kernel launch failed: CUDA error {err}")

@@ -23,8 +23,6 @@ from __future__ import annotations
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
-import torch
-
 from tissue_analysis_tpu_torch.core.stack import LabeledStack, resolve_device
 from tissue_analysis_tpu_torch.engine import collect_stack, dispatch_stack
 from tissue_analysis_tpu_torch.features.table import FeatureTable
@@ -86,12 +84,13 @@ def analyze_series(
     """Per-timepoint FeatureTables, each equal to ``analyze_stack`` of its
     frame.
 
-    ``devices``: torch devices (default: the CPU); frames are round-robined
+    ``devices``: torch devices (default: the current CUDA device;
+    ``["cpu"]`` for the CPU); frames are round-robined
     across them. Frames of one shape sweep a bucketed label count (the
     next power of two ≥ 64 above the largest seen so far), which keeps the
     reference's ``n_bucket`` contract and lets them share one converged
     dictionary size."""
-    devs = [resolve_device(d) for d in devices] if devices else [torch.device("cpu")]
+    devs = [resolve_device(d) for d in devices] if devices else [resolve_device(None)]
     bucket_by_shape: Dict[tuple, int] = {}
     pending: deque = deque()
     tables: List[FeatureTable] = []

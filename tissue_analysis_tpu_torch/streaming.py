@@ -269,9 +269,10 @@ def analyze_streamed(
     :func:`engine.analyze_stack` on the same voxels).
 
     ``source``: a 3D host ndarray / np.memmap, or any object with
-    ``shape``/``dtype``/``read(z0, z1)``. ``device`` (default: the CPU)
-    holds one ``(slab_z, Y, X)`` slab, its sweep's outputs and the previous
-    slab's last plane, whatever the stack's depth. ``engine`` takes the
+    ``shape``/``dtype``/``read(z0, z1)``. ``device`` (default: the current
+    CUDA device; ``"cpu"`` for the CPU) holds one ``(slab_z, Y, X)`` slab,
+    its sweep's outputs and the previous slab's last plane, whatever the
+    stack's depth. ``engine`` takes the
     port's names or the JAX package's (``pallas`` → ``cuda``, ``blocked``
     → ``torch``).
     """
