@@ -48,7 +48,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
 13. the adversarial inputs of ``ops/sweep_cases.py`` (no runs, runs across
     every boundary, ragged, one label, no live label, ids spread over
     n = 70,000, exactly L labels a block and one more, blocks (4, 8, 32)
-    and (1, 128, 128)): the kernel against the plain version.
+    and (1, 128, 128)): the kernel against the plain version;
+14. z-slab sharding (``parallel.analyze_sharded``) over a mesh of four
+    slabs on one card: the 512³ stack (against phase 4's table, the plain
+    engine sharded and a host stack sharded), the materialised 1024³
+    tiling of phase 12 and grid4 of phase 10 (every slab converging at
+    L = 512), with times beside the resident pass and peak memory; the same
+    over one slab a card when there are two or more cards.
 
 Kernel times are CUDA events over back-to-back launches (20 for the
 kernel, 5 for the plain version); whole passes are best of 5 on the host
@@ -207,6 +213,14 @@ def tables_equal(a, b, what: str) -> None:
 
 def stages_line(stages) -> str:
     return "; ".join(f"{s.name} {s.seconds * 1e3:.3f} ms" for s in stages.stages)
+
+
+def stage_sums(st) -> str:
+    """Stage times summed by name (a streamed or sharded run repeats them)."""
+    sums: dict = {}
+    for s in st.stages:
+        sums[s.name] = sums.get(s.name, 0.0) + s.seconds
+    return "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in sums.items())
 
 
 def facade_equal(a, b, queries, what: str) -> None:
@@ -515,7 +529,7 @@ def phase_grid4(log_prefix="[10]"):
         f"{smem_line(L)}), plain {t_p * 1e3:.3f} ms; "
         f"analyze_stack (cuda, converged L) {t_an * 1e3:.3f} ms")
     log(f"{log_prefix} stages of one grid4 analyze_stack: {stages_line(stages)}")
-    return launches, err, t_k, t_p, bound
+    return launches, err, t_k, t_p, bound, (img, table)
 
 
 def _voronoi_frame(shape, ncells: int, seed: int):
@@ -641,12 +655,6 @@ def phase_stream(img, log_prefix="[12]"):
             dt = time.perf_counter() - t0
         return out, dt, torch.cuda.max_memory_allocated() - base, st
 
-    def stage_sums(st) -> str:
-        sums: dict = {}
-        for s in st.stages:
-            sums[s.name] = sums.get(s.name, 0.0) + s.seconds
-        return "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in sums.items())
-
     launches = {}
     results = []
     src = TiledSource(np.asarray(img), TILES, background=1)
@@ -674,6 +682,7 @@ def phase_stream(img, log_prefix="[12]"):
             lambda: analyze_stack(LabeledStack.from_array(full, background=1, device="cuda")))
         tables_equal(resident, streamed, f"stream {name} vs resident")
         results.append((name, streamed, t_s, peak_s, st_s, t_r, peak_r, st_r, t_mat, slabs, t_p))
+        kept = (full, resident)  # the tiled stack's, for phase 14
         del full, resident
     tiled = results[1][1]
     if (tiled.n_labels, tiled.n_pairs) != (EXPECT_LABELS_TILED, EXPECT_PAIRS_TILED):
@@ -689,7 +698,117 @@ def phase_stream(img, log_prefix="[12]"):
             f"above what earlier phases left allocated)")
         log(f"{log_prefix} stages, streamed {name}: {stage_sums(st_s)}")
         log(f"{log_prefix} stages, resident {name}: {stage_sums(st_r)}")
-    return sum(launches.values())
+    return sum(launches.values()), kept
+
+
+def phase_sharded(stack, table, tiled, grid4, log_prefix="[14]"):
+    """z-slab sharding: four slabs on one card (and, with two or more
+    cards, one slab a card) at 512³, the materialised 1024³ tiling and
+    grid4, each against its resident table. Returns the kernel launches of
+    the one-card runs: (uint16 stacks, grid4)."""
+    import torch
+
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.engine import _GOOD_L, analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import DEFAULT_BLOCK, block_sweep
+    from tissue_analysis_tpu_torch.parallel import Mesh, analyze_sharded, make_mesh
+    from tissue_analysis_tpu_torch.utils import timing
+
+    def launched(fn):
+        block_sweep.launches = 0
+        out = fn()
+        sync()
+        return out, block_sweep.launches
+
+    def peak_of(fn) -> int:
+        """Peak bytes of one call above what was allocated before it, on the
+        card where that is largest."""
+        cards = range(torch.cuda.device_count())
+        base = [torch.cuda.memory_allocated(i) for i in cards]
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        fn()
+        for i in cards:
+            torch.cuda.synchronize(i)
+        return max(torch.cuda.max_memory_allocated(i) - b for i, b in zip(cards, base))
+
+    def run_mesh(mesh, label):
+        k = len(mesh.devices)
+        # ---- voronoi-512: stack on the card, and one on the host (H2D a slab)
+        got, l512 = launched(lambda: analyze_sharded(stack, mesh))
+        if l512 < k:
+            raise AssertionError(f"sharded 512: {l512} kernel launches for {k} slabs")
+        tables_equal(table, got, f"sharded 512 ({label}) vs resident")
+        tables_equal(analyze_sharded(stack, mesh, engine="torch"), got,
+                     f"sharded 512 ({label}) vs plain engine sharded")
+        host = LabeledStack.from_numpy(stack.dense.cpu().numpy(), stack.ids, stack.voxelsize,
+                                       stack.background_segment, device="cpu")
+        tables_equal(table, analyze_sharded(host, mesh), f"sharded 512 ({label}) from the host")
+        t_sh = best_of(lambda: analyze_sharded(stack, mesh))
+        t_res = best_of(lambda: analyze_stack(stack))
+        peak = peak_of(lambda: analyze_sharded(stack, mesh))
+        peak_r = peak_of(lambda: analyze_stack(stack))
+        with timing.collect() as st:
+            analyze_sharded(stack, mesh)
+        log(f"{log_prefix} sharded {SIZE}^3 on {label}: {l512} kernel launches, table == "
+            f"resident, == plain engine sharded, == sharded from a host stack; "
+            f"analyze_sharded {t_sh * 1e3:.3f} ms vs analyze_stack resident "
+            f"{t_res * 1e3:.3f} ms; peak device memory on the fullest card "
+            f"{peak / 2**30:.3f} GiB (resident {peak_r / 2**30:.3f} GiB) above the stack")
+        log(f"{log_prefix} stages, sharded {SIZE}^3 on {label}: {stage_sums(st)}")
+
+        # ---- the 1024^3 tiling, materialised
+        full, resident = tiled
+        t0 = time.perf_counter()
+        big = LabeledStack.from_array(full, background=1, device="cuda")
+        sync()
+        t_ing = time.perf_counter() - t0
+        got, l1024 = launched(lambda: analyze_sharded(big, mesh))
+        if l1024 < k:
+            raise AssertionError(f"sharded 1024: {l1024} kernel launches for {k} slabs")
+        tables_equal(resident, got, f"sharded 1024 ({label}) vs resident")
+        if (got.n_labels, got.n_pairs) != (EXPECT_LABELS_TILED, EXPECT_PAIRS_TILED):
+            raise AssertionError(f"sharded 1024: {got.n_labels} labels / {got.n_pairs} walls")
+        t_sh = best_of(lambda: analyze_sharded(big, mesh), reps=3, warmup=1)
+        t_res = best_of(lambda: analyze_stack(big), reps=3, warmup=1)
+        peak = peak_of(lambda: analyze_sharded(big, mesh))
+        peak_r = peak_of(lambda: analyze_stack(big))
+        del big
+        log(f"{log_prefix} sharded {SIZE * TILES[0]}^3 tiled on {label}: {l1024} kernel "
+            f"launches, {got.n_labels} labels, {got.n_pairs} walls, table == resident; "
+            f"analyze_sharded {t_sh * 1e3:.3f} ms vs analyze_stack resident "
+            f"{t_res * 1e3:.3f} ms (best of 3); peak device memory on the fullest card "
+            f"{peak / 2**30:.3f} GiB (resident {peak_r / 2**30:.3f} GiB) above the stack; "
+            f"relabel + H2D "
+            f"{t_ing:.1f} s")
+
+        # ---- grid4: every slab converges at L = 512 (the global face path)
+        img4, table4 = grid4
+        g4 = LabeledStack.from_array(img4, background=None, device="cuda")
+        slab = -(-GRID4_SHAPE[0] // (k * DEFAULT_BLOCK[0])) * DEFAULT_BLOCK[0]
+        key = ((min(slab, GRID4_SHAPE[0]),) + GRID4_SHAPE[1:], g4.n_labels, DEFAULT_BLOCK, 32)
+        _GOOD_L.pop(key, None)
+        got, lg4 = launched(lambda: analyze_sharded(g4, mesh))
+        slabs = -(-GRID4_SHAPE[0] // slab)
+        if (lg4, _GOOD_L[key]) != (slabs * EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L):
+            raise AssertionError(f"sharded grid4: {lg4} launches, converged at L={_GOOD_L[key]}")
+        tables_equal(table4, got, f"sharded grid4 ({label}) vs resident")
+        t_sh = best_of(lambda: analyze_sharded(g4, mesh), reps=3, warmup=1)
+        t_res = best_of(lambda: analyze_stack(g4), reps=3, warmup=1)
+        del g4
+        log(f"{log_prefix} sharded grid4 on {label}: {lg4} kernel launches ({slabs} slabs, "
+            f"L 32 -> {_GOOD_L[key]} each), table == resident; converged analyze_sharded "
+            f"{t_sh * 1e3:.3f} ms vs analyze_stack resident {t_res * 1e3:.3f} ms (best of 3)")
+        return l512 + l1024, lg4
+
+    launches = run_mesh(Mesh((torch.device("cuda:0"),) * 4), "4 slabs on cuda:0")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        run_mesh(make_mesh(), f"{cards} cards, a slab each")
+    else:
+        log(f"{log_prefix} across cards: not run, this machine has {cards} card; the "
+            f"4-slab mesh on cuda:0 above is what ran")
+    return launches
 
 
 def phase_adversarial(log_prefix="[13]") -> int:
@@ -871,14 +990,18 @@ def run_phases(futures) -> int:
     phase_raw(img)
 
     # ---- 10-12. past the shared-memory dictionary, time series, streaming
-    lg4, eg4, kg4, pg4, bg4 = phase_grid4()
+    lg4, eg4, kg4, pg4, bg4, grid4 = phase_grid4()
     frames = [img] + [SpatialImage(a) for a, _ in done]
     l_series = phase_series(frames, [t_gen] + [t for _, t in done])
     del frames, done
-    l_stream = phase_stream(img)
+    l_stream, tiled = phase_stream(img)
 
     # ---- 13. adversarial inputs, every label layout and face path
     e_adv = phase_adversarial()
+
+    # ---- 14. z-slab sharding against the resident tables
+    l_sh16, l_sh_g4 = phase_sharded(stack, table, tiled, grid4)
+    del tiled, grid4
 
     def shape(name, launches_main, err, t_k, t_p, bound):
         return {"shape": name, "launches_main_path": launches_main, "max_abs_err": float(err),
@@ -910,6 +1033,8 @@ def run_phases(futures) -> int:
         # the same contract on the series frames and the streamed slabs
         "launches_series": l_series,
         "launches_stream": l_stream,
+        # 512^3 and the 1024^3 tiling, four slabs on one card
+        "launches_sharded": l_sh16,
     }, {
         # kernel-v1's contract: the 2D lift and the int32 label space; ms,
         # plain_ms and bound_ms are the sums over the 4096^2 image and the
@@ -927,6 +1052,8 @@ def run_phases(futures) -> int:
         else "operations",
         "library_ms": None,
         "shapes": k2_shapes,
+        # grid4, four slabs on one card, each from L = 32 to 512
+        "launches_sharded": l_sh_g4,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

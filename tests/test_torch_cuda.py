@@ -317,3 +317,52 @@ def test_kernel_equals_plain_version_adversarial(dev, name):
     _assert_sweeps_equal(k, r)
     assert torch.equal(k.ids, r.ids)
     assert bool(r.ovf.all()) == (name == "alternate-x-over-L")
+
+
+def _sharded_equals_resident(img, mesh, background=1):
+    """The sharded table of ``img`` on ``mesh``, from a stack on the card and
+    from one on the CPU, against the resident table; returns the launches."""
+    from tissue_analysis_tpu_torch.parallel import analyze_sharded
+
+    st = LabeledStack.from_array(img, background=background, device="cuda:0")
+    resident = engine.analyze_stack(st)
+    before = block_sweep.launches
+    got = analyze_sharded(st, mesh)
+    launches = block_sweep.launches - before
+    host = analyze_sharded(LabeledStack.from_array(img, background=background, device="cpu"),
+                           mesh)
+    plain = analyze_sharded(st, mesh, engine="torch")
+    for t in (got, host, plain):
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(resident, f), getattr(t, f), err_msg=f)
+    return launches
+
+
+@pytest.mark.parametrize("shape,ncells", [((64, 64, 64), 90), ((300, 340), 60)])
+def test_sharded_four_slabs_on_one_card(dev, shape, ncells):
+    from tissue_analysis_tpu_torch.parallel import Mesh
+
+    img = voronoi_stack(shape, ncells, seed=4)
+    assert _sharded_equals_resident(img, Mesh((torch.device("cuda:0"),) * 4)) >= 3
+
+
+def test_sharded_grid_past_uint16_on_one_card(dev):
+    """65,536 labels (int32); every slab reruns its dictionary to L = 128."""
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+    from tissue_analysis_tpu_torch.parallel import Mesh
+
+    img = grid_stack((256, 256, 512), (8, 8, 8))
+    engine._GOOD_L.pop(((64, 256, 512), 65536, (8, 16, 128), 32), None)
+    launches = _sharded_equals_resident(img, Mesh((torch.device("cuda:0"),) * 4), None)
+    assert launches == 4 * 3
+
+
+def test_sharded_across_cards(dev):
+    from tissue_analysis_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    img = voronoi_stack((96, 64, 136), 120, seed=6)
+    mesh = make_mesh()
+    assert len(mesh.devices) == torch.cuda.device_count()
+    assert _sharded_equals_resident(img, mesh) >= 2

@@ -53,6 +53,10 @@ def test_port_runs_with_jax_blocked():
         assert ScipyOracle(img, background=1).volume()[1] > 0
         s = T.analyze_streamed(img, background=1, slab_z=5, device="cpu")
         assert np.array_equal(s.pair_lo, t.pair_lo) and np.array_equal(s.s2, t.s2)
+        import tissue_analysis_tpu_torch.parallel as P
+        sh = P.analyze_sharded(T.LabeledStack.from_array(img, background=1, device="cpu"),
+                               T.make_mesh(3, device="cpu"))
+        assert np.array_equal(sh.pair_lo, t.pair_lo) and np.array_equal(sh.s2, t.s2)
         tpg = T.temporal_graph_from_images([img, img], [{2: [2]}], background=1,
                                            devices=["cpu"])
         assert tpg.graph_property("nb_time_points") == 2
@@ -73,6 +77,26 @@ def test_port_runs_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("OK")
+
+
+def test_sharded_dryrun_runs_with_jax_blocked():
+    """``python -m tissue_analysis_tpu_torch.parallel.dryrun 4`` with every
+    ``import jax`` failing: the port's dryrun is its own, not the JAX one."""
+    code = textwrap.dedent(
+        """
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.argv = ["dryrun", "4"]
+        runpy.run_module("tissue_analysis_tpu_torch.parallel.dryrun", run_name="__main__")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=REPO, env=env,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("dryrun_multichip ok: 4 x cpu"), res.stdout
 
 
 @pytest.mark.parametrize(

@@ -14,7 +14,9 @@ The reference-compatible facade :func:`SpatialImageAnalysis` serves every
 per-cell query from that one table. Time series go through
 :func:`analyze_series` and :func:`temporal_graph_from_images` (lineage
 analysis in ``graph.temporal``); stacks larger than device memory stream
-through :func:`analyze_streamed` one z-slab at a time.
+through :func:`analyze_streamed` one z-slab at a time, and
+:func:`analyze_sharded` splits a stack into z-slabs over the devices of a
+:func:`make_mesh`.
 """
 
 from tissue_analysis_tpu_torch.core.spatial_image import (  # noqa: F401
@@ -70,6 +72,10 @@ from tissue_analysis_tpu_torch.series import (  # noqa: F401
     analyze_series,
     graph_series,
     temporal_graph_from_images,
+)
+from tissue_analysis_tpu_torch.parallel import (  # noqa: F401
+    analyze_sharded,
+    make_mesh,
 )
 
 __version__ = "0.1.0"

@@ -4,9 +4,9 @@ The whole per-voxel work is ONE per-block sweep (``ops/block_sweep.py``),
 followed by a small combine and pair reduction on the same device
 (``ops/combine.py``) and an exact host assembly. A 2D image is swept as a
 ``[1, Y, X]`` view with flat ``(1, 128, 128)`` blocks and its synthetic z
-axis is dropped afterwards. :func:`analyze_raw` sweeps the raw label values
-directly (no host relabel) and compacts the result on the host. Two engines
-give bit-identical tables:
+axis is dropped on the device after the combine. :func:`analyze_raw`
+sweeps the raw label values directly (no host relabel) and compacts the
+result on the host. Two engines give bit-identical tables:
 
 - ``"cuda"``  — the hand-written CUDA kernel (a stack on a CUDA device);
 - ``"torch"`` — its plain PyTorch version (any device).
@@ -16,9 +16,12 @@ CPU stack. Nothing falls back from one engine to another: a failing kernel
 raises.
 
 :func:`dispatch_stack` launches a sweep without waiting for the device and
-:func:`collect_stack` finishes it (overflow reruns, combine, readback), so a
-caller can relabel the next frame or slab while the card sweeps this one;
-:func:`analyze_stack` is the two in a row.
+:func:`collect_stack` finishes it, so a caller can relabel the next frame or
+slab while the card sweeps this one; :func:`analyze_stack` is the two in a
+row. :func:`collect_stack` is :func:`finish_stack` (overflow reruns,
+combine and pair reduce, on the device) then :func:`assemble_table`
+(readback and host assembly); the sharded engine merges several slabs'
+:class:`Finished` tables on the device between the two.
 """
 
 from __future__ import annotations
@@ -50,8 +53,11 @@ __all__ = [
     "analyze",
     "analyze_raw",
     "analyze_stack",
+    "assemble_table",
     "collect_stack",
     "dispatch_stack",
+    "finish_stack",
+    "Finished",
     "resolve_engine",
     "ENGINES",
 ]
@@ -124,8 +130,8 @@ def analyze_stack(
     ``L`` is the starting per-block dictionary size; a block with more
     labels makes the sweep rerun with L doubled, up to the engine's bound
     (:func:`~tissue_analysis_tpu_torch.ops.block_sweep.max_dict_size` for
-    the kernel), and the converged size is remembered for later stacks of
-    the same shape, label count and block. A 2D stack is swept as
+    the kernel), and the largest converged size is remembered for later
+    stacks of the same shape, label count and block. A 2D stack is swept as
     ``[1, Y, X]`` with block :data:`BLOCK_2D`.
 
     ``n_bucket`` sweeps a label space of ``max(n_labels, n_bucket)``; the
@@ -161,9 +167,36 @@ def dispatch_stack(
 
 
 def collect_stack(d: Dispatched) -> FeatureTable:
-    """Finish a dispatched sweep: rerun with L doubled while a block
-    overflows (``RuntimeError`` past the engine's bound), then combine,
-    reduce the pairs, read back and assemble the table."""
+    """Finish a dispatched sweep on the device (:func:`finish_stack`), then
+    read it back and assemble the table (:func:`assemble_table`)."""
+    return assemble_table(d.image, finish_stack(d))
+
+
+class Finished(NamedTuple):
+    """A finished sweep's per-label tables and wall pairs, on the device, in
+    the layout of the image as given (d = 2 or 3 axes):
+
+    - ``mom``  int64 [n, 1 + d + d(d+1)/2]: count, Σ per axis, Σ of the
+      products in ``features.finalize.tri_pairs`` order;
+    - ``cmin`` / ``cmax`` int32 [n, d]: bbox, IMAX / -1 where count is 0;
+    - ``pkey`` int64, sorted unique lo·4n + hi·4 + axis; ``ptotal`` int64,
+      the face count of each key."""
+
+    mom: torch.Tensor
+    cmin: torch.Tensor
+    cmax: torch.Tensor
+    pkey: torch.Tensor
+    ptotal: torch.Tensor
+
+
+# lifted-2D moment columns kept for the [Y, X] image: count, y, x, yy, yx, xx
+_COLS_2D = [0, 2, 3, 7, 8, 9]
+
+
+def finish_stack(d: Dispatched) -> Finished:
+    """The device side of :func:`collect_stack`: rerun with L doubled while
+    a block overflows (``RuntimeError`` past the engine's bound), combine
+    the moments and reduce the pairs. No readback."""
     stack, out, Lc = d.stack, d.out, d.L
     dev = stack.device
     n, n_sweep = stack.n_labels, d.n_sweep
@@ -177,40 +210,56 @@ def collect_stack(d: Dispatched) -> FeatureTable:
         Lc = min(2 * Lc, bound)
         with timing.stage("device sweep (block)", int(np.prod(stack.shape)), dev):
             out = d.sweep(stack.dense, n_sweep, d.block, Lc)
-    _GOOD_L[d.key] = Lc
+    # stacks of one key share the largest size any of them needed (equal
+    # slabs of one sharded stack, frames of one series)
+    _GOOD_L[d.key] = max(Lc, _GOOD_L.get(d.key, Lc))
 
     with timing.stage("combine + pair reduce", None, dev):
         mom, cmin, cmax = combine.combine_moments(
             out.ids, out.mom, out.gmin, out.gmax, n_sweep
         )
         pkey, ptotal = combine.reduce_pairs(out.ids, out.faces, n_sweep)
+        mom, cmin, cmax = mom[:n], cmin[:n], cmax[:n]
+        if n_sweep != n:
+            # keys of the n_sweep space → the n space (hi < n: order kept)
+            pkey = pkey - (pkey // (4 * n_sweep)) * (4 * (n_sweep - n))
+        if d.image.ndim == 2:
+            # the lifted z axis: its moments are 0 and no face lies along it
+            mom, cmin, cmax = mom[:, _COLS_2D], cmin[:, 1:], cmax[:, 1:]
+            pkey = pkey - 1
+    return Finished(mom, cmin, cmax, pkey, ptotal)
+
+
+def assemble_table(image: LabeledStack, fin: Finished) -> FeatureTable:
+    """Read a :class:`Finished` back and assemble the table of ``image``
+    (its ids, shape, voxel size and background)."""
+    d, n = image.ndim, image.n_labels
     with timing.stage("readback + host assemble"):
-        mom = mom[:n].cpu().numpy()
-        cmin = cmin[:n].cpu().numpy().astype(np.int64)
-        cmax = cmax[:n].cpu().numpy().astype(np.int64)
-        pair_lo, pair_hi, counts3 = combine.decode_pairs(
-            pkey.cpu().numpy(), ptotal.cpu().numpy(), n_sweep
+        mom = fin.mom.cpu().numpy()
+        cmin = fin.cmin.cpu().numpy().astype(np.int64)
+        cmax = fin.cmax.cpu().numpy().astype(np.int64)
+        pair_lo, pair_hi, counts = combine.decode_pairs(
+            fin.pkey.cpu().numpy(), fin.ptotal.cpu().numpy(), n, d
         )
     count = mom[:, 0].copy()
     empty = count == 0
     cmin[empty] = 0
     cmax[empty] = 0
-    table = FeatureTable(
-        ids=stack.ids.copy(),
-        shape=stack.shape,
-        voxelsize=stack.voxelsize,
-        background_segment=stack.background_segment,
+    return FeatureTable(
+        ids=image.ids.copy(),
+        shape=image.shape,
+        voxelsize=image.voxelsize,
+        background_segment=image.background_segment,
         count=count,
-        s1=mom[:, 1:4].copy(),
-        s2=mom[:, 4:10].copy(),
+        s1=mom[:, 1:1 + d].copy(),
+        s2=mom[:, 1 + d:].copy(),
         cmin=cmin,
         cmax=cmax,
         pair_lo=pair_lo,
         pair_hi=pair_hi,
-        wall_face_counts=counts3,
-        margin=_margin_from_bbox(count, cmin, cmax, stack.shape),
+        wall_face_counts=counts,
+        margin=_margin_from_bbox(count, cmin, cmax, image.shape),
     )
-    return _strip_z(table, d.image) if d.image.ndim == 2 else table
 
 
 def _margin_from_bbox(count, cmin, cmax, shape) -> np.ndarray:
@@ -228,33 +277,6 @@ def _lift_2d(stack: LabeledStack) -> LabeledStack:
         ids=stack.ids,
         voxelsize=(1.0,) + stack.voxelsize,
         background_segment=stack.background_segment,
-    )
-
-
-def _strip_z(table: FeatureTable, stack: LabeledStack) -> FeatureTable:
-    """Drop the synthetic z axis from a lifted-2D feature table.
-
-    z moments are identically zero (all coordinates 0); s2 keeps the
-    (yy, yx, xx) columns — the order is zz, zy, zx, yy, yx, xx. The margin
-    is recomputed from the 2D bbox: in the lifted stack every label touches
-    both z faces.
-    """
-    return FeatureTable(
-        ids=table.ids,
-        shape=stack.shape,
-        voxelsize=stack.voxelsize,
-        background_segment=table.background_segment,
-        count=table.count,
-        s1=table.s1[:, 1:],
-        s2=table.s2[:, 3:6],
-        cmin=table.cmin[:, 1:],
-        cmax=table.cmax[:, 1:],
-        pair_lo=table.pair_lo,
-        pair_hi=table.pair_hi,
-        wall_face_counts=table.wall_face_counts[:, 1:],
-        margin=_margin_from_bbox(
-            table.count, table.cmin[:, 1:], table.cmax[:, 1:], stack.shape
-        ),
     )
 
 

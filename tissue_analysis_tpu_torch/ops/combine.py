@@ -5,6 +5,9 @@ after the TPU kernel in ``tissue_analysis_tpu/ops/blocked.py``
 (``_global_moment_combine``, ``_compact_pair_mats``, ``_sorted_pair_reduce``,
 ``assemble_pairs``). int64 moments and int64 pair keys need none of the
 reference's split columns, two-key sorts or fixed-size buffers.
+:func:`shift_moments` and :func:`sum_by_key` move a slab's tables to its
+global offset and merge pair tables, the sharded engine's counterparts of
+the reference's in-kernel z offset and ``_sorted_pair_reduce_keys``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from tissue_analysis_tpu_torch.ops.block_sweep import IMAX
 
-__all__ = ["combine_moments", "reduce_pairs", "decode_pairs"]
+__all__ = ["combine_moments", "reduce_pairs", "sum_by_key", "shift_moments", "decode_pairs"]
 
 
 def combine_moments(
@@ -55,19 +58,47 @@ def reduce_pairs(
     lo = torch.minimum(ga, gb)
     hi = torch.maximum(ga, gb)
     ok = (hi < n) & (lo != hi)
-    key = (lo * (4 * n) + hi * 4 + axis)[ok]
-    cnt = cnt[ok]
+    return sum_by_key((lo * (4 * n) + hi * 4 + axis)[ok], cnt[ok])
+
+
+def sum_by_key(
+    key: torch.Tensor, count: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int64 keys and counts → (sorted unique keys, the sum of the counts
+    of each), on the device of ``key``."""
     ukey, inv = torch.unique(key, sorted=True, return_inverse=True)
-    total = torch.zeros(ukey.shape[0], dtype=torch.int64, device=ids.device)
-    total.index_add_(0, inv, cnt)
+    total = torch.zeros(ukey.shape[0], dtype=torch.int64, device=key.device)
+    total.index_add_(0, inv, count)
     return ukey, total
 
 
+def shift_moments(
+    mom: torch.Tensor, cmin: torch.Tensor, cmax: torch.Tensor, d: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-label tables of a slab (``engine.Finished`` layout, 2 or 3 axes)
+    moved by ``d`` along axis 0 (z; y for a 2D image), exactly in int64:
+    Σ(a+d) = Σa + d·count, Σ(a+d)² = Σa² + 2d·Σa + d²·count and
+    Σ(a+d)b = Σab + d·Σb, all from the slab's own sums. The bbox moves
+    where count > 0; absent rows keep IMAX / -1. Returns new tensors."""
+    nd = cmin.shape[1]
+    count = mom[:, 0]
+    out = mom.clone()
+    # s2 starts at column 1 + nd with (0,0), (0,1), .., (0,nd-1)
+    out[:, 1 + nd] += 2 * d * mom[:, 1] + d * d * count
+    out[:, 2 + nd:1 + 2 * nd] += d * mom[:, 2:1 + nd]
+    out[:, 1] += d * count
+    step = torch.where(count > 0, d, 0).to(cmin.dtype)
+    cmin, cmax = cmin.clone(), cmax.clone()
+    cmin[:, 0] += step
+    cmax[:, 0] += step
+    return out, cmin, cmax
+
+
 def decode_pairs(
-    key: np.ndarray, total: np.ndarray, n: int
+    key: np.ndarray, total: np.ndarray, n: int, axes: int = 3
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host decode of :func:`reduce_pairs` → (pair_lo int32, pair_hi int32,
-    wall_face_counts int64 [E, 3]), pairs in ascending (lo, hi) order."""
+    wall_face_counts int64 [E, axes]), pairs in ascending (lo, hi) order."""
     key = np.asarray(key, dtype=np.int64)
     n4 = np.int64(4 * n)
     lo = key // n4
@@ -83,7 +114,7 @@ def decode_pairs(
         np.not_equal(gk[1:], gk[:-1], out=starts[1:])
     inv = np.cumsum(starts) - 1
     uniq = gk[starts]
-    counts3 = np.zeros((uniq.shape[0], 3), dtype=np.int64)
+    counts3 = np.zeros((uniq.shape[0], axes), dtype=np.int64)
     counts3[inv, ax] = np.asarray(total, dtype=np.int64)
     return (
         (uniq >> 32).astype(np.int32),
