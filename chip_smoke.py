@@ -54,7 +54,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
     engine sharded and a host stack sharded), the materialised 1024³
     tiling of phase 12 and grid4 of phase 10 (every slab converging at
     L = 512), with times beside the resident pass and peak memory; the same
-    over one slab a card when there are two or more cards.
+    over one slab a card when there are two or more cards;
+15. the profiler hook: one converged ``analyze_stack`` of the 512³ stack and
+    one of grid4 under ``timing.profile_trace("build/traces")``; the trace
+    file exists, the block-sweep kernel is among the device entries, and the
+    device time of every other launch (what "combine + pair reduce" is made
+    of) is logged, largest first;
+16. the host profile: ``scripts/torch_host_profile.py`` at its voronoi-512,
+    grid8 and grid4 presets, the readbacks from the card;
+17. ``bench_torch.py`` on the 512³ stack already in memory (its JSON line is
+    printed, its whole pass beside phase 5's), and
+    ``examples/full_pipeline_torch.py --size 64`` on the card against the
+    same on the CPU (table, graph and temporal graph equal).
 
 Kernel times are CUDA events over back-to-back launches (20 for the
 kernel, 5 for the plain version); whole passes are best of 5 on the host
@@ -71,8 +82,12 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -811,6 +826,129 @@ def phase_sharded(stack, table, tiled, grid4, log_prefix="[14]"):
     return launches
 
 
+def load_script(relpath):
+    """Import a script of the repository (beside this file) by its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = os.path.splitext(os.path.basename(relpath))[0]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(here, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_profiler(stack, grid4, log_prefix="[15]"):
+    """One converged analyze_stack at voronoi-512 and at grid4 under the
+    profiler hook; returns the kernel launches of each."""
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.engine import analyze_stack
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+    from tissue_analysis_tpu_torch.utils import timing
+
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
+    img4, table4 = grid4
+    g4 = LabeledStack.from_array(img4, background=None, device="cuda")
+    launches = []
+    for name, st, want in ((f"voronoi-{SIZE}", stack, None), ("grid4", g4, table4)):
+        analyze_stack(st)  # the allocator and the converged L, outside the trace
+        block_sweep.launches = 0
+        with timing.profile_trace(log_dir) as prof:
+            got = analyze_stack(st)
+        launches.append(block_sweep.launches)
+        if launches[-1] != 1:
+            raise AssertionError(f"profiler {name}: {launches[-1]} launches in a converged pass")
+        if want is not None:
+            tables_equal(want, got, f"profiled {name} vs unprofiled")
+        if not (prof.trace_path and os.path.getsize(prof.trace_path) > 0):
+            raise AssertionError(f"profiler {name}: no trace file")
+        rows = timing.device_times(prof)
+        sweep = [r for r in rows if "block_sweep_kernel" in r[0]]
+        if len(sweep) != 1 or sweep[0][1] != 1 or not sweep[0][2] > 0:
+            raise AssertionError(
+                f"profiler {name}: no device entry of the block-sweep kernel among "
+                f"{[r[0][:40] for r in rows]}")
+        copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
+        others = [r for r in rows if r not in sweep and r not in copies]
+        log(f"{log_prefix} profiler {name}: trace {os.path.relpath(prof.trace_path)} "
+            f"({os.path.getsize(prof.trace_path):,} B); device time {sum(r[2] for r in rows) / 1e3:.3f} ms "
+            f"in {sum(r[1] for r in rows)} launches and copies: block_sweep_kernel "
+            f"{sweep[0][2] / 1e3:.3f} ms; {len(others)} other kernels "
+            f"{sum(r[2] for r in others) / 1e3:.3f} ms in {sum(r[1] for r in others)} launches "
+            f"(combine + pair reduce, and the overflow check's reduce); copies and "
+            f"memsets {sum(r[2] for r in copies) / 1e3:.3f} ms")
+        for key, calls, us in copies + others[:12]:
+            short = key.replace("void ", "").replace("at::native::", "").replace(
+                "at_cuda_detail::cub::", "")
+            log(f"{log_prefix}   {name} {us / 1e3:9.3f} ms  x{calls:<3d} {short[:120]}")
+        ops = timing.device_times(prof, by_op=True)
+        log(f"{log_prefix}   {name} the same device time by the operator that launched it: "
+            + "; ".join(f"{k} {us / 1e3:.3f} ms x{c}" for k, c, us in ops[:14]))
+    del g4
+    return launches
+
+
+def phase_host_profile(log_prefix="[16]"):
+    """The host profile's lines at the three presets, readbacks from the card."""
+    hp = load_script(os.path.join("scripts", "torch_host_profile.py"))
+    for preset, extra in (("voronoi-512", []), ("grid8", ["--graph-reps", "1"]),
+                          ("grid4", ["--graph-reps", "1"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = hp.main(["--preset", preset] + extra)
+        for line in out.getvalue().splitlines():
+            log(f"{log_prefix} {preset}: {line}")
+        whole = results["engine.assemble_table (all of the above)"]
+        if not (len(results) == 21 and whole > 0):
+            raise AssertionError(f"host profile {preset}: {len(results)} lines")
+
+
+def phase_bench_example(img, t_whole, log_prefix="[17]"):
+    """bench_torch.py on the stack in memory, and the example on the card
+    against the CPU; returns the kernel launches of (one timed bench pass,
+    the example)."""
+    import numpy as np
+
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+
+    import bench_torch
+
+    rec = bench_torch.main([], img=np.asarray(img))  # prints its JSON line
+    if rec["launches"] < 1 or rec["backend"] != "cuda":
+        raise AssertionError(f"bench: {rec['launches']} launches on {rec['backend']}")
+    if f"{EXPECT_LABELS} labels / {EXPECT_PAIRS} walls" not in rec["metric"]:
+        raise AssertionError(f"bench: {rec['metric']}")
+    ratio = rec["end_to_end_s"] / t_whole
+    log(f"{log_prefix} bench_torch: whole pass (end_to_end_s) {rec['end_to_end_s'] * 1e3:.3f} ms "
+        f"beside phase 5's {t_whole * 1e3:.3f} ms (ratio {ratio:.3f}); resident pass + graph "
+        f"{rec['wall_s'] * 1e3:.3f} ms ({rec['value']:.1f} Mvox/s), raw whole pass "
+        f"{rec['end_to_end_raw_s'] * 1e3:.3f} ms; {rec['launches']} launch(es) a timed pass; "
+        f"{rec['device']}, {rec['power_limit']}")
+    # both are host-clock times of a host-bound pass on a shared host: the
+    # guard is for a pass that is not the same work, not for noise
+    if not 1 / 3 < ratio < 3:
+        raise AssertionError(f"bench: whole pass {ratio:.2f}x phase 5's")
+
+    ex = load_script(os.path.join("examples", "full_pipeline_torch.py"))
+    out = io.StringIO()
+    block_sweep.launches = 0
+    with contextlib.redirect_stdout(out):
+        table, graph, tpg = ex.main(["--size", "64", "--device", "cuda"])
+    sync()
+    launches = block_sweep.launches
+    if launches < 5:  # facade, analyze, graph_from_image and two frames
+        raise AssertionError(f"example: {launches} kernel launches")
+    with contextlib.redirect_stdout(io.StringIO()):
+        table_c, graph_c, tpg_c = ex.main(["--size", "64", "--device", "cpu"])
+    tables_equal(table_c, table, "example cuda vs cpu table")
+    graphs_equal(graph, graph_c, "example cuda vs cpu graph")
+    graphs_equal(tpg, tpg_c, "example cuda vs cpu temporal graph")
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log(f"{log_prefix} example: {line}")
+    log(f"{log_prefix} example --size 64: {launches} kernel launches; table, graph and "
+        f"temporal graph == the CPU run's")
+    return rec["launches"], launches
+
+
 def phase_adversarial(log_prefix="[13]") -> int:
     """The kernel against its plain version on the adversarial inputs;
     returns the max |diff|."""
@@ -1001,7 +1139,13 @@ def run_phases(futures) -> int:
 
     # ---- 14. z-slab sharding against the resident tables
     l_sh16, l_sh_g4 = phase_sharded(stack, table, tiled, grid4)
-    del tiled, grid4
+    del tiled
+
+    # ---- 15-17. the profiler hook, the host profile, the bench and the example
+    l_prof, l_prof_g4 = phase_profiler(stack, grid4)
+    del grid4
+    phase_host_profile()
+    l_bench, l_example = phase_bench_example(img, t_whole)
 
     def shape(name, launches_main, err, t_k, t_p, bound):
         return {"shape": name, "launches_main_path": launches_main, "max_abs_err": float(err),
@@ -1035,6 +1179,10 @@ def run_phases(futures) -> int:
         "launches_stream": l_stream,
         # 512^3 and the 1024^3 tiling, four slabs on one card
         "launches_sharded": l_sh16,
+        # one profiled pass, one timed pass of bench_torch.py, the example
+        "launches_profiler": l_prof,
+        "launches_bench": l_bench,
+        "launches_example": l_example,
     }, {
         # kernel-v1's contract: the 2D lift and the int32 label space; ms,
         # plain_ms and bound_ms are the sums over the 4096^2 image and the
@@ -1054,6 +1202,8 @@ def run_phases(futures) -> int:
         "shapes": k2_shapes,
         # grid4, four slabs on one card, each from L = 32 to 512
         "launches_sharded": l_sh_g4,
+        # one profiled converged pass of grid4
+        "launches_profiler": l_prof_g4,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -366,3 +366,46 @@ def test_sharded_across_cards(dev):
     mesh = make_mesh()
     assert len(mesh.devices) == torch.cuda.device_count()
     assert _sharded_equals_resident(img, mesh) >= 2
+
+
+def test_profile_trace_holds_the_sweep_kernel(dev, tmp_path):
+    """The profiler hook on the card: the trace file exists, and the sweep
+    kernel is among the device entries, once per launch."""
+    import json
+
+    from tissue_analysis_tpu_torch.utils import timing
+
+    st = _stack((64, 64, 64), 150, 0, dev)
+    engine.analyze_stack(st)  # build the kernel and converge L outside the trace
+    before = block_sweep.launches
+    with timing.profile_trace(str(tmp_path / "traces")) as prof:
+        engine.analyze_stack(st)
+    launched = block_sweep.launches - before
+    assert launched >= 1
+    with open(prof.trace_path) as f:
+        assert len(json.load(f)["traceEvents"]) >= 1
+    rows = timing.device_times(prof)
+    sweep = [r for r in rows if "block_sweep_kernel" in r[0]]
+    assert len(sweep) == 1, [r[0] for r in rows]
+    assert sweep[0][1] == launched and sweep[0][2] > 0
+    assert [r[2] for r in rows] == sorted((r[2] for r in rows), reverse=True)
+    # the same device time by operator: the combine's scatter is there, and
+    # the sweep kernel, launched outside any operator, is not
+    ops = timing.device_times(prof, by_op=True)
+    assert any(r[0] == "aten::index_add_" and r[2] > 0 for r in ops), [r[0] for r in ops]
+    assert not any("block_sweep" in r[0] for r in ops)
+
+
+@pytest.mark.parametrize("dtype", [">u2", ">i4"])
+def test_raw_non_native_byte_order_on_the_card(dev, dtype):
+    img = np.asarray(voronoi_stack((40, 48, 136), 90, seed=4)).astype(dtype)
+    assert not img.dtype.isnative
+    before = block_sweep.launches
+    raw = engine.analyze_raw(img, background=1, device=dev)
+    assert block_sweep.launches > before
+    ref = engine.analyze(img, background=1, device=dev)
+    for f in ("ids", "count", "s1", "s2", "cmin", "cmax", "pair_lo", "pair_hi",
+              "wall_face_counts", "margin"):
+        x, y = getattr(ref, f), getattr(raw, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)

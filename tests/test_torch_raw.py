@@ -123,3 +123,39 @@ def test_raw_sweep_dtype_follows_id_range(monkeypatch):
 def test_raw_float_dtype_rejected():
     with pytest.raises(TypeError):
         engine.analyze_raw(np.zeros((4, 4, 4), dtype=np.float32), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [">u2", ">i4"])
+def test_raw_non_native_byte_order(dtype):
+    """A byte-swapped array (a big-endian file read as it is): ``analyze_raw``
+    takes it through the raw sweep and returns the table ``analyze`` returns,
+    in the port and in the JAX package."""
+    from tissue_analysis_tpu.engine import analyze as jax_analyze
+
+    img = _voronoi(dtype)
+    assert not img.dtype.isnative
+    with timing.collect() as t:
+        port = engine.analyze_raw(img, background=1, device="cpu")
+    assert "raw-mode host compaction" in [s.name for s in t.stages]
+    assert_tables_equal(engine.analyze(img, background=1, device="cpu"), port)
+    assert_tables_equal(jax_analyze(img, background=1), port)
+    assert_tables_equal(
+        engine.analyze_raw(img.astype(img.dtype.newbyteorder("=")), background=1,
+                           device="cpu"),
+        port,
+    )
+
+
+def test_raw_upload_of_a_native_array_is_zero_copy():
+    """The byte-order repair costs the common path nothing: a native,
+    C-contiguous, writable array is uploaded as the object it is."""
+    img = _voronoi(np.uint16)
+    assert engine._uploadable(img) is img
+    swapped = engine._uploadable(img.astype(">u2"))
+    assert swapped.dtype == np.uint16 and swapped.dtype.isnative
+    np.testing.assert_array_equal(swapped, img)
+    # a strided view still becomes contiguous, as before
+    view = img[:, ::2]
+    fixed = engine._uploadable(view)
+    assert fixed.flags.c_contiguous
+    np.testing.assert_array_equal(fixed, view)

@@ -333,7 +333,7 @@ def analyze_raw(
         return analyze(arr, voxelsize, background, dev, engine)
     voxels = int(arr.size)
     with timing.stage("ingest: host->device transfer (raw)", voxels, dev):
-        raw = torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(dev)
+        raw = torch.from_numpy(_uploadable(arr)).to(dev)
     with timing.stage("ingest: device id-range scan", None, dev):
         mn, mx = (int(v) for v in torch.aminmax(widened(raw)))
     if mn < 0 or mx >= max_raw_id:
@@ -355,6 +355,16 @@ def analyze_raw(
     table = analyze_stack(stack, engine=engine)
     with timing.stage("raw-mode host compaction"):
         return _compact_raw_table(table, background)
+
+
+def _uploadable(arr: np.ndarray) -> np.ndarray:
+    """``arr`` as ``torch.from_numpy`` takes it: native byte order,
+    C-contiguous and writable. An array that already is all three comes back
+    as the same object (the upload stays a zero-copy view); a byte-swapped
+    one, as a big-endian ``.npy`` file gives, costs one host pass."""
+    if not arr.dtype.isnative:
+        arr = arr.astype(arr.dtype.newbyteorder("="))
+    return np.require(arr, requirements=["C", "W"])
 
 
 def _compact_raw_table(t: FeatureTable, background) -> FeatureTable:
