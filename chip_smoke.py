@@ -65,7 +65,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
 17. ``bench_torch.py`` on the 512³ stack already in memory (its JSON line is
     printed, its whole pass beside phase 5's), and
     ``examples/full_pipeline_torch.py --size 64`` on the card against the
-    same on the CPU (table, graph and temporal graph equal).
+    same on the CPU (table, graph and temporal graph equal);
+18. the flat engine (``engine="chunked"``: segment sums and a key sort over
+    the whole stack, no per-block dictionary; plain PyTorch, no kernel of
+    its own): its table against the kernel engine's from phases 4, 6, 7 and
+    10 at voronoi-512, 4096² 2D (native, no lift), grid8-512 and grid4, with
+    its time, peak device memory, stages and device side beside the kernel
+    engine's, its launches under the profiler hook, and two chunk sizes
+    timed at voronoi-512 and grid4;
+    dense-grid2, ``grid_stack((256, 256, 512), (2, 2, 2))``: 4,194,304
+    labels, 2048 a block, past every dictionary (the face counts of L = 2048
+    are 103 GB): ``engine="cuda"`` must raise and name the bytes and
+    ``engine="chunked"``, ``engine="auto"`` must warn, count one reroute,
+    launch no kernel and return the closed-form table (every count 8, 12,500,992 walls of 4
+    faces), ``engine="chunked"`` the same; ``analyze_sharded_chunked`` of
+    the 512³ stack over four slabs on one card against the resident table.
+
+``engine.reroutes`` is set to 0 at the start and must still be 0 after
+phases 3-17 and again at the end of phase 18: every path that asked for the
+kernel or the plain block engine took it.
 
 Kernel times are CUDA events over back-to-back launches (20 for the
 kernel, 5 for the plain version); whole passes are best of 5 on the host
@@ -116,6 +134,16 @@ EXPECT_PAIRS_GRID4 = (
 # a default block holds 2x4x32 cells plus 200 past its far faces: 456
 # dictionary labels, so L doubles 32 -> ... -> 512 (five sweeps)
 EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L = 5, 512
+DENSE2_SHAPE, DENSE2_CELL = (256, 256, 512), 2
+_D2 = tuple(s // DENSE2_CELL for s in DENSE2_SHAPE)
+EXPECT_LABELS_DENSE2 = _D2[0] * _D2[1] * _D2[2]  # 4,194,304
+EXPECT_PAIRS_DENSE2 = (
+    (_D2[0] - 1) * _D2[1] * _D2[2] + _D2[0] * (_D2[1] - 1) * _D2[2]
+    + _D2[0] * _D2[1] * (_D2[2] - 1)
+)  # 12,500,992
+# a default block holds 4x8x64 cells: L doubles 32 -> 1024 (six sweeps), and
+# the faces of 2048 blocks at L = 2048 do not fit an 80 GB card
+EXPECT_DENSE2_LAUNCHES, EXPECT_DENSE2_FACE_BYTES = 6, 2048 * 2048 * 3 * 2048 * 4
 SERIES_SEEDS = (2, 3)  # frames after the seed-1 stack
 SLAB_Z = 128
 TILES = (2, 2, 2)
@@ -310,7 +338,7 @@ def phase_2d(log_prefix="[6]"):
         f"pass (relabel + H2D + analyze) {t_whole * 1e3:.3f} ms "
         f"({SIZE_2D ** 2 / t_whole / 1e6:.1f} Mpix/s)")
     log(f"{log_prefix} stages of one 2D facade pass: {stages_line(stages)}")
-    return launches, err, t_k, t_p, bound
+    return launches, err, t_k, t_p, bound, (img, table)
 
 
 def phase_grid(log_prefix="[7]"):
@@ -370,7 +398,7 @@ def phase_grid(log_prefix="[7]"):
         f"{smem_line(L)}), plain {t_p * 1e3:.3f} ms; "
         f"analyze_stack (cuda, converged L) {t_an * 1e3:.3f} ms")
     log(f"{log_prefix} stages of one grid analyze_stack: {stages_line(stages)}")
-    return launches, err, t_k, t_p, bound
+    return launches, err, t_k, t_p, bound, (img, table)
 
 
 def smem_line(L) -> str:
@@ -949,6 +977,189 @@ def phase_bench_example(img, t_whole, log_prefix="[17]"):
     return rec["launches"], launches
 
 
+def no_reroute(phase: str) -> None:
+    """A phase that asked for the kernel (or the plain block engine) took it."""
+    from tissue_analysis_tpu_torch import engine
+
+    if engine.reroutes != 0:
+        raise AssertionError(f"{phase}: {engine.reroutes} stack(s) rerouted to the flat engine")
+
+
+def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
+    """The flat engine against the kernel engine's tables, dense-grid2's
+    capacity route, and the flat engine sharded; returns its record."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch import engine
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+    from tissue_analysis_tpu_torch.ops import segred, stencil
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+    from tissue_analysis_tpu_torch.parallel import Mesh, analyze_sharded, analyze_sharded_chunked
+    from tissue_analysis_tpu_torch.utils import timing
+
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
+    t_phase = time.perf_counter()
+
+    def peak_of(fn) -> int:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        sync()
+        return torch.cuda.max_memory_allocated() - base
+
+    record = []
+    cases = (
+        (f"voronoi-{SIZE}", stack, table, True),
+        (f"voronoi-{SIZE_2D}^2 2D", lambda: LabeledStack.from_array(
+            img2d[0], background=1, device="cuda"), img2d[1], False),
+        (f"grid8-{SIZE}", lambda: LabeledStack.from_array(
+            grid8[0], background=None, device="cuda"), grid8[1], False),
+        ("grid4", lambda: LabeledStack.from_array(
+            grid4[0], background=None, device="cuda"), grid4[1], True),
+    )
+    for name, st, want, detail in cases:
+        if callable(st):
+            st = st()
+        n = st.n_labels
+        block_sweep.launches, engine.reroutes = 0, 0
+        got = engine.analyze_stack(st, engine="chunked")
+        sync()
+        if block_sweep.launches or engine.reroutes:
+            raise AssertionError(f"flat {name}: {block_sweep.launches} kernel launches")
+        tables_equal(want, got, f"flat engine {name} vs the kernel engine")
+        t_flat = best_of(lambda: engine.analyze_stack(st, engine="chunked"))
+        t_block = best_of(lambda: engine.analyze_stack(st))
+        t_flat_dev = best_of(lambda: engine.flat_sweep(st))
+        t_block_dev = best_of(lambda: engine.finish_stack(engine.dispatch_stack(st)))
+        peak = peak_of(lambda: engine.analyze_stack(st, engine="chunked"))
+        peak_block = peak_of(lambda: engine.analyze_stack(st))
+        with timing.collect() as stages:
+            engine.analyze_stack(st, engine="chunked")
+        with timing.profile_trace(log_dir) as prof:
+            engine.flat_sweep(st)
+        rows = timing.device_times(prof)
+        if not rows or any("block_sweep_kernel" in r[0] for r in rows):
+            raise AssertionError(f"flat {name}: device entries {[r[0][:40] for r in rows]}")
+        n_dev, t_prof = sum(r[1] for r in rows), sum(r[2] for r in rows) / 1e3
+        log(f"{log_prefix} flat engine {name}: table == the kernel engine's ({n} labels, "
+            f"{got.n_pairs} walls, 0 kernel launches); analyze_stack chunked "
+            f"{t_flat * 1e3:.3f} ms vs cuda {t_block * 1e3:.3f} ms; device side (flat_sweep) "
+            f"{t_flat_dev * 1e3:.3f} ms vs kernel + combine (dispatch + finish_stack) "
+            f"{t_block_dev * 1e3:.3f} ms; peak device memory above the stack "
+            f"{peak / 2**30:.3f} GiB vs {peak_block / 2**30:.3f} GiB; one profiled flat_sweep: "
+            f"{t_prof:.3f} ms of device time in {n_dev} launches and copies")
+        log(f"{log_prefix} stages, flat {name}: {stages_line(stages)}")
+        record.append({
+            "shape": name, "ms": t_flat * 1e3, "kernel_engine_ms": t_block * 1e3,
+            "device_ms": t_flat_dev * 1e3, "kernel_engine_device_ms": t_block_dev * 1e3,
+            "peak_bytes": peak, "kernel_engine_peak_bytes": peak_block,
+            "profiled_device_ms": t_prof, "profiled_launches": n_dev,
+        })
+        if detail:
+            # the reference's chunk (2^21 voxels) beside the port's default
+            parts = []
+            for chunk in (1 << 21, segred.DEFAULT_CHUNK):
+                for part, fn in (("moments", segred.moment_sweep), ("pairs", stencil.pair_sweep)):
+                    t = best_of(lambda: fn(st.dense, n, chunk), reps=3, warmup=1)
+                    parts.append(f"{part} chunk=2^{chunk.bit_length() - 1} {t * 1e3:.3f} ms")
+            log(f"{log_prefix} flat {name}, by part (best of 3): " + "; ".join(parts))
+        del st, got
+
+    # ---- dense-grid2: 2048 labels a block, past every dictionary
+    t0 = time.perf_counter()
+    img = grid_stack(DENSE2_SHAPE, (DENSE2_CELL,) * 3)
+    st = LabeledStack.from_array(img, background=None, device="cuda")
+    sync()
+    t_make = time.perf_counter() - t0
+    if st.n_labels != EXPECT_LABELS_DENSE2:
+        raise AssertionError(f"dense-grid2: {st.n_labels} labels")
+    block_sweep.launches = 0
+    try:
+        engine.analyze_stack(st, engine="cuda")
+    except ValueError as err:
+        msg = str(err)
+    else:
+        raise AssertionError("dense-grid2: engine='cuda' returned a table")
+    launches = block_sweep.launches
+    if (f"{EXPECT_DENSE2_FACE_BYTES:,} bytes" not in msg or 'engine="chunked"' not in msg
+            or launches != EXPECT_DENSE2_LAUNCHES):
+        raise AssertionError(f"dense-grid2: {launches} launches, then: {msg}")
+    engine.reroutes = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sync()
+        t0 = time.perf_counter()
+        block_sweep.launches = 0
+        auto = engine.analyze_stack(st)
+        sync()
+        t_auto = time.perf_counter() - t0
+    warned = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    if (engine.reroutes != 1 or len(warned) != 1 or 'engine="chunked"' not in warned[0]
+            or block_sweep.launches != 0):
+        raise AssertionError(f"dense-grid2 auto: {engine.reroutes} reroutes, "
+                             f"{block_sweep.launches} kernel launches, warnings {warned}")
+    engine.reroutes = 0
+    if not (auto.n_labels == EXPECT_LABELS_DENSE2 and np.all(auto.count == DENSE2_CELL ** 3)):
+        raise AssertionError("dense-grid2: a cell's voxel count is not 8")
+    if auto.n_pairs != EXPECT_PAIRS_DENSE2:
+        raise AssertionError(f"dense-grid2: {auto.n_pairs} walls, expected {EXPECT_PAIRS_DENSE2}")
+    if not np.all(auto.wall_face_counts.sum(axis=1) == DENSE2_CELL ** 2):
+        raise AssertionError("dense-grid2: a wall's face total is not 4")
+    if not np.all(auto.cmax - auto.cmin == DENSE2_CELL - 1):
+        raise AssertionError("dense-grid2: a cell's bbox is not 2x2x2")
+    # one timed pass (its host assemble of 12.5 M pairs takes over a second)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with timing.collect() as stages:
+        t0 = time.perf_counter()
+        flat = engine.analyze_stack(st, engine="chunked")
+        t_flat = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    tables_equal(auto, flat, "dense-grid2 chunked vs auto")
+    del flat
+    t_flat_dev = best_of(lambda: engine.flat_sweep(st))
+    log(f"{log_prefix} dense-grid2 {DENSE2_SHAPE} cell {DENSE2_CELL}^3 ({st.n_labels} labels, "
+        f"{EXPECT_LABELS_DENSE2 // 2048} a block; made and relabeled in {t_make:.1f} s): "
+        f"engine='cuda' raised after {launches} launches: {msg}")
+    log(f"{log_prefix} dense-grid2 engine='auto': 1 reroute before any launch, 1 warning, table in "
+        f"{t_auto * 1e3:.3f} ms == closed form ({auto.n_pairs} walls of 4 faces, every count 8) "
+        f"== engine='chunked'; analyze_stack chunked {t_flat * 1e3:.3f} ms (one pass), device "
+        f"side {t_flat_dev * 1e3:.3f} ms, peak device memory above the stack "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"{log_prefix} dense-grid2 warning: {warned[0]}")
+    log(f"{log_prefix} stages, dense-grid2 chunked: {stages_line(stages)}")
+    record.append({
+        "shape": "dense-grid2", "ms": t_flat * 1e3, "device_ms": t_flat_dev * 1e3,
+        "peak_bytes": peak, "auto_ms": t_auto * 1e3, "cuda_launches_before_raise": launches,
+    })
+    del st, auto, img
+
+    # ---- the flat engine sharded: four slabs on one card
+    mesh = Mesh((torch.device("cuda:0"),) * 4)
+    block_sweep.launches = 0
+    got = analyze_sharded_chunked(stack, mesh)
+    sync()
+    if block_sweep.launches:
+        raise AssertionError("sharded flat engine launched the block-sweep kernel")
+    tables_equal(table, got, "analyze_sharded_chunked vs resident")
+    t_sh = best_of(lambda: analyze_sharded_chunked(stack, mesh))
+    t_sh_k = best_of(lambda: analyze_sharded(stack, mesh))
+    with timing.collect() as stages:
+        analyze_sharded_chunked(stack, mesh)
+    log(f"{log_prefix} analyze_sharded_chunked {SIZE}^3 on 4 slabs on cuda:0: table == "
+        f"resident; {t_sh * 1e3:.3f} ms vs analyze_sharded (kernel) {t_sh_k * 1e3:.3f} ms")
+    log(f"{log_prefix} stages, sharded flat {SIZE}^3: {stage_sums(stages)}")
+    record.append({"shape": f"sharded voronoi-{SIZE} x4", "ms": t_sh * 1e3,
+                   "kernel_engine_ms": t_sh_k * 1e3})
+    no_reroute("phase 18")
+    log(f"{log_prefix} the phase took {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def phase_adversarial(log_prefix="[13]") -> int:
     """The kernel against its plain version on the adversarial inputs;
     returns the max |diff|."""
@@ -1001,6 +1212,7 @@ def run_phases(futures) -> int:
     import numpy as np
     import torch
 
+    from tissue_analysis_tpu_torch import engine
     from tissue_analysis_tpu_torch.core.spatial_image import SpatialImage
     from tissue_analysis_tpu_torch.core.stack import LabeledStack
     from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack
@@ -1015,6 +1227,7 @@ def run_phases(futures) -> int:
     from tissue_analysis_tpu_torch.utils import timing
 
     # ---- 1. device
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1029,6 +1242,7 @@ def run_phases(futures) -> int:
     log(f"[2] build: block_sweep.cu compiled and loaded in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernel vs plain version on the card
+    engine.reroutes = 0
     t0 = time.perf_counter()
     img = voronoi_stack((SIZE,) * 3, NCELLS, seed=SEED)
     t_gen = time.perf_counter() - t0
@@ -1122,8 +1336,8 @@ def run_phases(futures) -> int:
     log("[5] stages of one whole pass: " + stages_line(stages))
 
     # ---- 6-9. kernel-v1's paths (2D, n >= 2^16), the facade, analyze_raw
-    l2d, e2d, k2d, p2d, b2d = phase_2d()
-    lgr, egr, kgr, pgr, bgr = phase_grid()
+    l2d, e2d, k2d, p2d, b2d, img2d = phase_2d()
+    lgr, egr, kgr, pgr, bgr, grid8 = phase_grid()
     phase_facade_3d(img)
     phase_raw(img)
 
@@ -1143,9 +1357,14 @@ def run_phases(futures) -> int:
 
     # ---- 15-17. the profiler hook, the host profile, the bench and the example
     l_prof, l_prof_g4 = phase_profiler(stack, grid4)
-    del grid4
     phase_host_profile()
     l_bench, l_example = phase_bench_example(img, t_whole)
+    no_reroute("phases 3-17")
+
+    # ---- 18. the flat engine: no per-block dictionary, no kernel of its own
+    flat = phase_flat(stack, table, img2d, grid8, grid4)
+    del img2d, grid8, grid4
+    log(f"all 18 phases took {time.perf_counter() - t_start:.1f} s")
 
     def shape(name, launches_main, err, t_k, t_p, bound):
         return {"shape": name, "launches_main_path": launches_main, "max_abs_err": float(err),
@@ -1204,7 +1423,11 @@ def run_phases(futures) -> int:
         "launches_sharded": l_sh_g4,
         # one profiled converged pass of grid4
         "launches_profiler": l_prof_g4,
-    }]}), flush=True)
+    }],
+        # plain PyTorch (scatter and sort library kernels), the yardstick of
+        # the hand kernel: whole analyze_stack and device side, ms, per shape
+        "flat_engine": flat,
+    }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -409,3 +409,99 @@ def test_raw_non_native_byte_order_on_the_card(dev, dtype):
         x, y = getattr(ref, f), getattr(raw, f)
         assert x.dtype == y.dtype, f
         np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+# ---------------------------------------------------------- the flat engine
+def _assert_tables_equal(a, b):
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("shape,ncells", [
+    ((64, 64, 64), 90),
+    ((37, 50, 131), 120),  # ragged against every block and chunk edge
+    ((300, 340), 60),  # 2D, native
+])
+def test_flat_engine_equals_the_kernel_engine(dev, shape, ncells):
+    from tissue_analysis_tpu_torch.parallel import Mesh, analyze_sharded
+
+    st = _stack(shape, ncells, 2, dev)
+    before, engine.reroutes = block_sweep.launches, 0
+    want = engine.analyze_stack(st, engine="cuda")
+    assert block_sweep.launches > before and engine.reroutes == 0
+    before = block_sweep.launches
+    for chunk in (None, 5000):
+        _assert_tables_equal(want, engine.analyze_stack_chunked(st, chunk=chunk))
+    _assert_tables_equal(want, engine.analyze_stack(st, engine="chunked"))
+    mesh = Mesh((dev,) * 3)
+    _assert_tables_equal(want, analyze_sharded(st, mesh, engine="chunked"))
+    assert block_sweep.launches == before  # the flat engine launches no kernel
+    _assert_tables_equal(want, engine.analyze_stack_pallas(st))
+    assert block_sweep.launches > before
+
+
+def test_flat_moments_equal_the_kernel_engines_on_the_card(dev):
+    """``segred.moment_sweep`` at two chunk sizes against the moments that
+    kernel + combine give (``finish_stack``), on the card."""
+    from tissue_analysis_tpu_torch.ops import segred
+
+    st = _stack((37, 50, 131), 120, 2, dev)
+    want = engine.finish_stack(engine.dispatch_stack(st, "cuda"))[:3]
+    for chunk in (None, 4097):
+        got = segred.moment_sweep(st.dense, st.n_labels, chunk)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+def test_dense_grid_route_on_the_card(dev, monkeypatch):
+    """4096 labels a block (cells of 2x2x1) at a size that takes seconds:
+    past the kernel's dictionary bound, so an explicit engine raises, and
+    ``auto`` knows from the sizes alone: it launches no kernel and reroutes
+    once to the flat engine. 2048 a block (cells of 2x2x2) are inside the
+    bound by that count while a block's dictionary holds 2848 with its
+    far-face neighbours: ``auto`` sweeps and raises as ``cuda`` does. A
+    face buffer the card cannot hold raises under ``auto`` too: nothing
+    reroutes after a launch."""
+    from tissue_analysis_tpu_torch.core.synthetic import grid_stack
+
+    shape = (32, 64, 256)
+    st = LabeledStack.from_array(grid_stack(shape, (2, 2, 1)), background=None, device=dev)
+    n = 16 * 32 * 256
+    assert st.n_labels == n
+    assert engine.block_capacity(32, dev, "cuda") == bs.max_dict_size() < 2848
+    with pytest.raises(RuntimeError, match='engine="chunked"'):
+        engine.analyze_stack(st, engine="cuda")
+    before, engine.reroutes = block_sweep.launches, 0
+    with pytest.warns(UserWarning, match='holds 4096 labels or more.*engine="chunked"'):
+        got = engine.analyze_stack(st)
+    assert engine.reroutes == 1 and block_sweep.launches == before
+    _assert_tables_equal(engine.analyze_stack(st, engine="chunked"), got)
+    assert got.n_labels == n and np.all(got.count == 4)
+    assert got.n_pairs == 15 * 32 * 256 + 16 * 31 * 256 + 16 * 32 * 255
+    faces = got.wall_face_counts
+    assert np.all((faces > 0).sum(axis=1) == 1) and set(faces.max(axis=1)) == {2, 4}
+
+    st2 = LabeledStack.from_array(grid_stack(shape, (2, 2, 2)), background=None, device=dev)
+    assert st2.n_labels == 32 * 2048
+    for name in ("cuda", "auto"):
+        with pytest.raises(RuntimeError, match='largest this engine takes.*engine="chunked"'):
+            engine.analyze_stack(st2, engine=name)
+    assert engine.reroutes == 1
+    assert np.all(engine.analyze_stack(st2, engine="chunked").count == 8)
+
+    # 512 labels a block: inside the capacity, so "auto" is the kernel engine
+    st4 = LabeledStack.from_array(grid_stack(shape, (2, 4, 4)), background=None, device=dev)
+    engine._GOOD_L.clear()
+    real = bs._faces_buffer
+
+    def small_device(B, L, block, d):
+        if L >= 256:
+            raise ValueError(f"the face counts at L={L} need {B * L * 3 * L * 4:,} bytes")
+        return real(B, L, block, d)
+
+    monkeypatch.setattr(bs, "_faces_buffer", small_device)
+    for name in ("cuda", "auto"):
+        with pytest.raises(ValueError, match="L=256 need"):
+            engine.analyze_stack(st4, engine=name)
+    assert engine.reroutes == 1

@@ -12,12 +12,21 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tissue_analysis_tpu_torch import engine  # noqa: E402
-from tissue_analysis_tpu_torch.analysis import SpatialImageAnalysis  # noqa: E402
+from tissue_analysis_tpu_torch.analysis import AnalysisConfig, SpatialImageAnalysis  # noqa: E402
 from tissue_analysis_tpu_torch.core.stack import LabeledStack, resolve_device  # noqa: E402
 from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack  # noqa: E402
+from tissue_analysis_tpu_torch.parallel import (  # noqa: E402
+    analyze_sharded_chunked,
+    make_mesh,
+    sharded_pipeline,
+)
 from tissue_analysis_tpu_torch.series import analyze_series  # noqa: E402
 
 _NO_CARD = 'device="cpu"'
+
+
+def _cpu_stack(im):
+    return LabeledStack.from_array(im, background=1, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +58,26 @@ CALLS = {
         lambda im: SpatialImageAnalysis(im, background=1),
         lambda im: SpatialImageAnalysis(im, background=1, device="cpu").table(),
     ),
+    "analyze[chunked]": (
+        lambda im: engine.analyze(im, background=1, engine="chunked"),
+        lambda im: engine.analyze(im, background=1, engine="chunked", device="cpu"),
+    ),
+    "analyze_raw[chunked]": (
+        lambda im: engine.analyze_raw(im, background=1, engine="chunked"),
+        lambda im: engine.analyze_raw(im, background=1, engine="chunked", device="cpu"),
+    ),
+    "SpatialImageAnalysis[chunked]": (
+        lambda im: SpatialImageAnalysis(
+            im, background=1, config=AnalysisConfig(background=1, engine="chunked")),
+        lambda im: SpatialImageAnalysis(
+            im, background=1, config=AnalysisConfig(background=1, engine="chunked"),
+            device="cpu").table(),
+    ),
+    # a CPU stack in hand: the mesh is what defaults to the card
+    "analyze_sharded_chunked": (
+        lambda im: analyze_sharded_chunked(_cpu_stack(im)),
+        lambda im: analyze_sharded_chunked(_cpu_stack(im), make_mesh(2, device="cpu")),
+    ),
     "analyze_series": (
         lambda im: analyze_series([im], background=1),
         lambda im: analyze_series([im], background=1, devices=["cpu"])[0],
@@ -70,3 +99,20 @@ def test_entry_point_defaults_to_the_card(no_card, img, name):
         default(img)
     table = on_cpu(img)
     assert table.n_labels > 2 and int(table.count.sum()) == img.size
+
+
+def test_sharded_pipeline_defaults_to_the_card(no_card, img):
+    st = _cpu_stack(img)
+    with pytest.raises(RuntimeError, match=_NO_CARD):
+        sharded_pipeline(st.dense, st.n_labels)
+    parts = sharded_pipeline(st.dense, st.n_labels, mesh=make_mesh(2, device="cpu"))
+    assert sum(int(p[0][:, 0].sum()) for p in parts) == img.size
+
+
+def test_flat_engine_runs_where_the_stack_lies(img):
+    """The flat engine is plain PyTorch: ``engine="chunked"`` takes a stack
+    on any device, and on a CPU stack it never asks for the card."""
+    st = _cpu_stack(img)
+    fin = engine.flat_sweep(st)
+    assert all(t.device.type == "cpu" for t in fin)
+    assert engine.analyze_stack_chunked(st).n_labels == st.n_labels

@@ -96,10 +96,22 @@ def test_overflow_past_the_bound_raises(img, monkeypatch):
     key = (st.shape, st.n_labels, bs.DEFAULT_BLOCK, 32)
     engine._GOOD_L.pop(key, None)
     with timing.collect() as t:
-        with pytest.raises(RuntimeError, match="L=128"):
-            engine.analyze_stack(st)
+        with pytest.raises(RuntimeError, match='L=128.*engine="chunked"'):
+            engine.analyze_stack(st, engine="torch")
     assert sum(s.name == "device sweep (block)" for s in t.stages) == 3
     assert key not in engine._GOOD_L
+    # 256 labels a block over the whole image: "auto" knows before any
+    # sweep, says so and gives the stack to the flat engine
+    engine.reroutes = 0
+    with timing.collect() as t:
+        with pytest.warns(UserWarning, match='256 labels or more.*L=128.*engine="chunked"'):
+            got = engine.analyze_stack(st)
+    assert not any(s.name == "device sweep (block)" for s in t.stages)
+    assert engine.reroutes == 1 and key not in engine._GOOD_L
+    monkeypatch.undo()
+    want = engine.analyze_stack(st, engine="torch")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(want, f), getattr(got, f), err_msg=f)
 
 
 def test_face_buffer_larger_than_free_device_memory_raises(monkeypatch):

@@ -171,3 +171,57 @@ def test_more_than_65535_labels():
 def test_analyze_entry_point(small3d, tables):
     _, _, port = tables("small3d")
     assert_tables_equal(port, engine.analyze(small3d, background=1, device="cpu"))
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_flat_engine_equals_block_engine(tables, name):
+    """``engine="chunked"`` (no per-block dictionary) gives the table the
+    block engine gives (held against the Pallas and blocked engines above)."""
+    _, ps, port = tables(name)
+    with timing.collect() as t:
+        assert_tables_equal(port, engine.analyze_stack(ps, engine="chunked"))
+    assert [s.name for s in t.stages] == [
+        "device sweep (flat moments)", "device sweep (flat pairs)", "readback + host assemble",
+    ]
+    assert_tables_equal(port, engine.analyze_stack_chunked(ps, chunk=4096))
+
+
+def test_engine_names():
+    assert engine.ENGINES == ("auto", "cuda", "torch", "chunked")
+    want = {"auto": "auto", "cuda": "cuda", "torch": "torch", "chunked": "chunked",
+            "pallas": "cuda", "blocked": "torch"}
+    assert {k: engine.resolve_engine(k) for k in want} == want
+    with pytest.raises(ValueError, match="unknown engine"):
+        engine.resolve_engine("xla")
+
+
+def test_dispatched_flat_sweep_has_no_overflow_loop(tables):
+    """A dispatch of the flat engine is finished already: ``finish_stack``
+    hands its tables on, whatever L or bucket was asked for."""
+    _, ps, port = tables("voronoi")
+    d = engine.dispatch_stack(ps, "chunked", L=1, n_bucket=4096)
+    assert d.sweep is engine.flat_sweep
+    fin = d.out
+    assert isinstance(fin, engine.Finished) and fin.mom.shape == (ps.n_labels, 10)
+    # the handle gives its tables up: it is collected once
+    assert engine.finish_stack(d) is fin and d.out is None
+    with pytest.raises(ValueError, match="collected already"):
+        engine.collect_stack(d)
+    assert_tables_equal(port, engine.collect_stack(engine.dispatch_stack(ps, "chunked")))
+
+
+def test_explicit_engines_never_reroute(tables):
+    """A converging stack reroutes under no engine name, and one whose
+    labels a block are past the capacity only under ``auto``
+    (test_torch_chunked.py)."""
+    _, ps, port = tables("small3d")
+    engine.reroutes = 0
+    for name in engine.ENGINES:
+        if name != "cuda":
+            assert_tables_equal(port, engine.analyze_stack(ps, engine=name))
+    assert engine.reroutes == 0
+    dense = LabeledStack.from_array(
+        np.arange(8 * 16 * 40, dtype=np.int32).reshape(8, 16, 40), device="cpu")
+    with pytest.raises(RuntimeError, match='L=4096.*engine="chunked"'):
+        engine.analyze_stack(dense, engine="torch")
+    assert engine.reroutes == 0

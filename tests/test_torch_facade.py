@@ -286,7 +286,7 @@ def test_analysis_config_and_background_override(small3d):
 @pytest.mark.parametrize(
     "name,port_engine",
     [("auto", "auto"), ("cuda", "cuda"), ("torch", "torch"),
-     ("pallas", "cuda"), ("blocked", "torch"), ("chunked", "torch")],
+     ("pallas", "cuda"), ("blocked", "torch"), ("chunked", "chunked")],
 )
 def test_engine_name_mapping(facades, small3d, name, port_engine):
     assert P.resolve_engine(name) == port_engine

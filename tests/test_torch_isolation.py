@@ -35,6 +35,7 @@ def test_port_runs_with_jax_blocked():
 
         import tissue_analysis_tpu_torch.analysis as A
         import tissue_analysis_tpu_torch.ops.stencil  # noqa: F401
+        import tissue_analysis_tpu_torch.ops.segred  # noqa: F401
 
         img = voronoi_stack((16, 16, 16), 12, seed=0)
         t = T.analyze(img, background=1, device="cpu")
@@ -57,6 +58,21 @@ def test_port_runs_with_jax_blocked():
         sh = P.analyze_sharded(T.LabeledStack.from_array(img, background=1, device="cpu"),
                                T.make_mesh(3, device="cpu"))
         assert np.array_equal(sh.pair_lo, t.pair_lo) and np.array_equal(sh.s2, t.s2)
+        # the flat engine: resident, sharded, and the capacity route of "auto"
+        flat = T.analyze(img, background=1, device="cpu", engine="chunked")
+        assert np.array_equal(flat.wall_face_counts, t.wall_face_counts)
+        assert np.array_equal(flat.s2, t.s2) and np.array_equal(flat.margin, t.margin)
+        fs = P.analyze_sharded_chunked(
+            T.LabeledStack.from_array(img, background=1, device="cpu"),
+            T.make_mesh(2, device="cpu"))
+        assert np.array_equal(fs.pair_hi, t.pair_hi) and np.array_equal(fs.cmax, t.cmax)
+        import warnings
+        from tissue_analysis_tpu_torch import engine
+        dense = np.arange(2, 2 + 64 * 128, dtype=np.int32).reshape(64, 128)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert T.analyze(dense, device="cpu").n_labels == 64 * 128
+        assert engine.reroutes == 1 and len(caught) == 1
         tpg = T.temporal_graph_from_images([img, img], [{2: [2]}], background=1,
                                            devices=["cpu"])
         assert tpg.graph_property("nb_time_points") == 2

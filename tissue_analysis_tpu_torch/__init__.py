@@ -10,6 +10,9 @@ A segmented 2D or 3D image is relabeled on the host
 (:func:`analyze_stack`, kernel ``csrc/block_sweep.cu``) into an exact
 :class:`FeatureTable`, and exported as a cell property graph
 (:func:`graph_from_table`). :func:`analyze_raw` skips the host relabel.
+A stack with more labels in a block than the block sweep's dictionary takes
+goes through the flat engine (``engine="chunked"``,
+:func:`analyze_stack_chunked`), which ``engine="auto"`` reroutes to.
 The reference-compatible facade :func:`SpatialImageAnalysis` serves every
 per-cell query from that one table. Time series go through
 :func:`analyze_series` and :func:`temporal_graph_from_images` (lineage
@@ -29,6 +32,11 @@ from tissue_analysis_tpu_torch.engine import (  # noqa: F401
     analyze,
     analyze_raw,
     analyze_stack,
+    analyze_stack_blocked,
+    analyze_stack_chunked,
+    analyze_stack_pallas,
+    collect_stack_pallas,
+    dispatch_stack_pallas,
 )
 from tissue_analysis_tpu_torch.features.table import FeatureTable  # noqa: F401
 from tissue_analysis_tpu_torch.analysis import (  # noqa: F401

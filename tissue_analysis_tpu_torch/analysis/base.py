@@ -57,7 +57,8 @@ class AnalysisConfig:
     real: bool = True
     min_contact_area: Optional[float] = None
     connectivity: int = 1
-    # 'auto' | 'cuda' | 'torch', or the JAX package's names for them
+    # 'auto' | 'cuda' | 'torch' | 'chunked' (the flat engine), or the JAX
+    # package's 'pallas' / 'blocked'
     engine: str = "auto"
 
 

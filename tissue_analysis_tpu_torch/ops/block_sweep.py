@@ -189,7 +189,8 @@ def _faces_buffer(B: int, L: int, block, dev: torch.device) -> torch.Tensor:
         free = torch.cuda.mem_get_info(dev)[0]
         raise ValueError(
             f"the [B, L, 3L] face counts of {B} blocks of {block} at "
-            f"L={L} need {B * L * 3 * L * 4:,} bytes; {dev} has {free:,} free"
+            f"L={L} need {B * L * 3 * L * 4:,} bytes; {dev} has {free:,} free "
+            f'(engine="chunked", the flat engine, needs no face buffer)'
         ) from None
 
 

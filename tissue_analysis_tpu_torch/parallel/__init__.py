@@ -8,4 +8,5 @@ from tissue_analysis_tpu_torch.parallel.sharded import (  # noqa: F401
     analyze_sharded_chunked,
     analyze_sharded_pallas,
     make_mesh,
+    sharded_pipeline,
 )

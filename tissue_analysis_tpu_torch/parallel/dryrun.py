@@ -1,8 +1,9 @@
 """Multi-device equality check of the z-slab-sharded engine.
 
 Runs :func:`~tissue_analysis_tpu_torch.parallel.sharded.analyze_sharded` on
-a mesh of ``n_devices`` entries of one device, and the streamed engine, and
-holds every table against ``engine.analyze_stack`` on the same device,
+a mesh of ``n_devices`` entries of one device (through the block engine and
+through the flat engine), and the streamed engine, and holds every table
+against ``engine.analyze_stack`` on the same device,
 field by field::
 
     python -m tissue_analysis_tpu_torch.parallel.dryrun 8          # the CPU
@@ -49,7 +50,9 @@ def run(n_devices: int, device="cpu") -> None:
 
     # case 1: a depth (30) that no mesh size of 4 or 8 divides
     st1 = stack_of(voronoi_stack((30, 24, 24), 25, seed=3))
-    _check(analyze_sharded(st1, mesh), engine.analyze_stack(st1), "case1")
+    ref1 = engine.analyze_stack(st1)
+    _check(analyze_sharded(st1, mesh), ref1, "case1")
+    _check(analyze_sharded(st1, mesh, engine="chunked"), ref1, "case1, flat engine")
 
     # case 2: several blocks a slab and every seam crossed by cells; at
     # L = 4 the slabs rerun with L doubled
@@ -63,7 +66,9 @@ def run(n_devices: int, device="cpu") -> None:
     slabs = sum(s.name == "shard: shift + z-seam" for s in t.stages)
     if sweeps <= slabs:
         raise AssertionError(f"case2: {sweeps} sweeps of {slabs} slabs, no rerun at L={L}")
-    _check(got2, engine.analyze_stack(st2), "case2")
+    ref2 = engine.analyze_stack(st2)
+    _check(got2, ref2, "case2")
+    _check(analyze_sharded(st2, mesh, engine="chunked"), ref2, "case2, flat engine")
 
     # case 3: the streamed path, cross-section much wider than a slab
     img3 = voronoi_stack((32, 192, 192), 150, seed=11, sphere=False)
@@ -71,8 +76,8 @@ def run(n_devices: int, device="cpu") -> None:
     _check(got3, engine.analyze_stack(stack_of(img3)), "case3")
 
     print(
-        f"dryrun_multichip ok: {n_devices} x {mesh.devices[0]}, sharded and "
-        f"streamed tables == analyze_stack (case1 {st1.n_labels} labels, "
+        f"dryrun_multichip ok: {n_devices} x {mesh.devices[0]}, sharded (block and "
+        f"flat engine) and streamed tables == analyze_stack (case1 {st1.n_labels} labels, "
         f"depth 30; case2 {st2.n_labels} labels, {sweeps} sweeps of {slabs} "
         f"slabs from L={L}; case3 streamed slab_z=8, {got3.n_labels} labels)",
         flush=True,

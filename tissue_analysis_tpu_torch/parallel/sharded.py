@@ -25,6 +25,15 @@ field:
    ``pmin`` / ``pmax`` / ``all_gather``;
 5. one readback and the host assembly that ``analyze_stack`` uses.
 
+``engine="chunked"`` (:func:`analyze_sharded_chunked`) runs the flat
+engine a slab instead: :func:`sharded_pipeline` sweeps each slab's moments
+at its global flat offset (``ops.segred.moment_sweep``, no shift
+afterwards) and its pairs (``ops.stencil.pair_sweep``) with the same
+z-seam, and the same merge and assembly follow. ``engine="auto"`` goes
+there too, before any sweep, for a stack whose labels a block are past
+the block engine's capacity for one slab (``engine.auto_engine``: a
+warning and one counted reroute).
+
 A mesh may name one card several times (``Mesh((cuda:0,) * 4)``): four
 slabs, four sweeps, a real halo and merge, on one card. Nothing maps a
 request for more cards than exist onto fewer, and a slab that fails
@@ -43,12 +52,14 @@ from tissue_analysis_tpu_torch.engine import (
     BLOCK_2D,
     Finished,
     assemble_table,
+    auto_engine,
+    block_engine,
     dispatch_stack,
     finish_stack,
     resolve_engine,
 )
 from tissue_analysis_tpu_torch.features.table import FeatureTable
-from tissue_analysis_tpu_torch.ops import combine
+from tissue_analysis_tpu_torch.ops import combine, segred, stencil
 from tissue_analysis_tpu_torch.ops.block_sweep import DEFAULT_BLOCK
 from tissue_analysis_tpu_torch.ops.seam import seam_pairs
 from tissue_analysis_tpu_torch.utils import timing
@@ -56,6 +67,7 @@ from tissue_analysis_tpu_torch.utils import timing
 __all__ = [
     "Mesh",
     "make_mesh",
+    "sharded_pipeline",
     "analyze_sharded",
     "analyze_sharded_pallas",
     "analyze_sharded_blocked",
@@ -111,19 +123,42 @@ def _plane(dense: torch.Tensor) -> torch.Tensor:
 
 
 def _merge(parts, dev: torch.device) -> Finished:
-    """Per-slab tables (each already shifted, its pairs reduced) → one
-    table on ``dev``."""
-    moms, cmins, cmaxs, keys, totals = zip(
-        *[[t.to(dev) for t in part] for part in parts]
-    )
-    pkey, ptotal = combine.sum_by_key(torch.cat(keys), torch.cat(totals))
-    return Finished(
-        mom=torch.stack(moms).sum(0),
-        cmin=torch.stack(cmins).amin(0),
-        cmax=torch.stack(cmaxs).amax(0),
-        pkey=pkey,
-        ptotal=ptotal,
-    )
+    """Per-slab tables (each in global coordinates, its pairs reduced) →
+    one table on ``dev``."""
+    keys = torch.cat([p[3].to(dev) for p in parts])
+    totals = torch.cat([p[4].to(dev) for p in parts])
+    # the first slab lies on ``dev``, where the partials are gathered
+    mom, cmin, cmax = segred.combine_moment_partials([p[:3] for p in parts])
+    return Finished(mom, cmin, cmax, *combine.sum_by_key(keys, totals))
+
+
+def _slab_depth(shape, mesh: Mesh) -> int:
+    """Depth of one slab of an image of ``shape`` along axis 0: a multiple
+    of the sweep block's extent on that axis (y of a 2D image)."""
+    b0 = BLOCK_2D[1] if len(shape) == 2 else DEFAULT_BLOCK[0]
+    return -(-shape[0] // (len(mesh.devices) * b0)) * b0
+
+
+def _split(dense: torch.Tensor, mesh: Mesh):
+    """(start, slab on its mesh device) of the contiguous slabs of ``dense``
+    along axis 0 (:func:`_slab_depth`); no slab starts past the end."""
+    depth = dense.shape[0]
+    slab = _slab_depth(dense.shape, mesh)
+    return [
+        (z0, dense[z0:z0 + slab].to(dev))
+        for z0, dev in zip(range(0, depth, slab), mesh.devices)
+    ]
+
+
+def _with_seam(slabs, k: int, n: int, pkey, ptotal):
+    """Slab k's pair table with the faces between its last plane and the
+    next slab's first plane (copied over) added, on axis 0."""
+    if k + 1 == len(slabs):
+        return pkey, ptotal
+    dense = slabs[k][1]
+    first = slabs[k + 1][1][:1].to(dense.device)
+    key, total = seam_pairs(_plane(dense[-1:]), _plane(first), n)
+    return combine.sum_by_key(torch.cat([pkey, key]), torch.cat([ptotal, total]))
 
 
 def analyze_sharded(
@@ -136,49 +171,88 @@ def analyze_sharded(
     ``mesh`` defaults to :func:`make_mesh`'s (every visible CUDA device).
     The stack may live on any device; each slab is copied to its mesh
     device. ``engine`` takes the port's and the JAX package's names
-    (``pallas`` → ``cuda``, ``blocked`` / ``chunked`` → ``torch``); ``cuda``
-    needs every slab on a CUDA device. ``L`` is the starting dictionary
-    size; slabs of one shape share the converged size across calls."""
+    (``pallas`` → ``cuda``, ``blocked`` → ``torch``, ``chunked`` →
+    :func:`analyze_sharded_chunked`); ``cuda`` needs every slab on a CUDA
+    device. ``L`` is the starting dictionary size; slabs of one shape share
+    the converged size across calls."""
     if mesh is None:
         mesh = make_mesh()
     engine = resolve_engine(engine)
+    if engine == "chunked":
+        return analyze_sharded_chunked(stack, mesh)
     if stack.ndim not in (2, 3):
         raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
-    # the sweep block's extent along the split axis (y of a 2D image)
-    b0 = BLOCK_2D[1] if stack.ndim == 2 else DEFAULT_BLOCK[0]
-    depth, n = stack.shape[0], stack.n_labels
-    slab = -(-depth // (len(mesh.devices) * b0)) * b0
-    starts = range(0, depth, slab)
+    n = stack.n_labels
+    if engine == "auto":
+        # the whole stack's test: a slab does not hold every label
+        part = (min(_slab_depth(stack.shape, mesh), stack.shape[0]),) + stack.shape[1:]
+        if auto_engine(stack, mesh.devices[0], part) == "chunked":
+            return analyze_sharded_chunked(stack, mesh)
 
     with timing.stage("shard: slab copy", int(stack.dense.numel())):
-        slabs = [
-            LabeledStack(
-                dense=stack.dense[z0:z0 + slab].to(dev),
-                ids=stack.ids,
-                voxelsize=stack.voxelsize,
-                background_segment=stack.background_segment,
-            )
-            for z0, dev in zip(starts, mesh.devices)
-        ]
-    handles = [dispatch_stack(s, engine, L) for s in slabs]
+        slabs = _split(stack.dense, mesh)
+    handles = [
+        dispatch_stack(
+            dataclasses.replace(stack, dense=dense), block_engine(engine, dense.device), L
+        )
+        for _, dense in slabs
+    ]
 
     parts = []
-    for k, (z0, s, h) in enumerate(zip(starts, slabs, handles)):
+    for k, ((z0, dense), h) in enumerate(zip(slabs, handles)):
         fin = finish_stack(h)
-        keys, totals = [fin.pkey], [fin.ptotal]
-        with timing.stage("shard: shift + z-seam", None, s.device):
+        with timing.stage("shard: shift + z-seam", None, dense.device):
             mom, cmin, cmax = combine.shift_moments(fin.mom, fin.cmin, fin.cmax, z0)
-            if k + 1 < len(slabs):
-                first = slabs[k + 1].dense[:1].to(s.device)
-                key, total = seam_pairs(_plane(s.dense[-1:]), _plane(first), n)
-                keys.append(key)
-                totals.append(total)
-            pkey, ptotal = combine.sum_by_key(torch.cat(keys), torch.cat(totals))
+            pkey, ptotal = _with_seam(slabs, k, n, fin.pkey, fin.ptotal)
         parts.append((mom, cmin, cmax, pkey, ptotal))
     dev0 = mesh.devices[0]
     with timing.stage("shard: merge", None, dev0):
         merged = _merge(parts, dev0)
     return assemble_table(stack, merged)
+
+
+def sharded_pipeline(
+    dense: torch.Tensor, n_labels: int, chunk: Optional[int] = None,
+    max_pairs: Optional[int] = None, mesh: Optional[Mesh] = None,
+    orig_z: Optional[int] = None,
+) -> list:
+    """The flat engine over the slabs of ``dense`` (segment ids, 2D or 3D),
+    one slab a mesh device: the per-slab partial tables, for callers that
+    merge themselves.
+
+    Returns one ``(mom, cmin, cmax, pkey, ptotal)`` a slab, on the slab's
+    device, in ``engine.Finished``'s layout and in GLOBAL coordinates: the
+    moments are swept at the slab's flat offset, and the pairs hold the
+    seam to the next slab. Sums and pair totals add across slabs, the bbox
+    takes min / max (``ops.segred.combine_moment_partials``,
+    ``ops.combine.sum_by_key``).
+
+    The reference wants ``dense`` padded along axis 0 to a multiple of the
+    mesh size, with ``orig_z`` the extent before padding. The port pads
+    nothing: planes at or past ``orig_z`` (default: all of ``dense``) are
+    not swept. ``max_pairs`` sizes the reference's pair buffers; the port's
+    tables have the size of their content and ignore it."""
+    if mesh is None:
+        mesh = make_mesh()
+    if dense.dim() not in (2, 3):
+        raise ValueError(f"expected a 2D or 3D stack, got shape {tuple(dense.shape)}")
+    if orig_z is not None:
+        dense = dense[:int(orig_z)]
+    shape, n = tuple(dense.shape), int(n_labels)
+    plane = dense[0].numel()
+    with timing.stage("shard: slab copy", int(dense.numel())):
+        slabs = _split(dense, mesh)
+    parts = []
+    for k, (z0, slab) in enumerate(slabs):
+        voxels = int(slab.numel())
+        with timing.stage("device sweep (flat moments)", voxels, slab.device):
+            mom, cmin, cmax = segred.moment_sweep(slab, n, chunk, z0 * plane, shape)
+        with timing.stage("device sweep (flat pairs)", voxels, slab.device):
+            pkey, ptotal = stencil.pair_sweep(slab, n, chunk)
+        with timing.stage("shard: shift + z-seam", None, slab.device):
+            pkey, ptotal = _with_seam(slabs, k, n, pkey, ptotal)
+        parts.append((mom, cmin, cmax, pkey, ptotal))
+    return parts
 
 
 def analyze_sharded_pallas(
@@ -203,9 +277,17 @@ def analyze_sharded_blocked(
 
 
 def analyze_sharded_chunked(
-    stack: LabeledStack, mesh: Optional[Mesh] = None, L: int = 32
+    stack: LabeledStack, mesh: Optional[Mesh] = None,
+    max_pairs: Optional[int] = None, chunk: Optional[int] = None,
 ) -> FeatureTable:
-    """:func:`analyze_sharded` through the plain PyTorch sweep (the
-    counterpart of the reference's sharded chunked engine, which takes 2D
-    images too)."""
-    return analyze_sharded(stack, mesh, "torch", L)
+    """:func:`analyze_sharded` through the flat engine (the counterpart of
+    the reference's sharded chunked engine; 2D images too, split along y):
+    :func:`sharded_pipeline`, the merge on the mesh's first device, and the
+    host assembly. ``max_pairs`` is accepted and ignored."""
+    if mesh is None:
+        mesh = make_mesh()
+    parts = sharded_pipeline(stack.dense, stack.n_labels, chunk, max_pairs, mesh)
+    dev0 = mesh.devices[0]
+    with timing.stage("shard: merge", None, dev0):
+        merged = _merge(parts, dev0)
+    return assemble_table(stack, merged)

@@ -38,6 +38,7 @@ import numpy as np
 from tissue_analysis_tpu_torch.core.stack import LabeledStack, resolve_device
 from tissue_analysis_tpu_torch.engine import (
     _margin_from_bbox,
+    block_engine,
     collect_stack,
     dispatch_stack,
     resolve_engine,
@@ -274,10 +275,12 @@ def analyze_streamed(
     its sweep's outputs and the previous slab's last plane, whatever the
     stack's depth. ``engine`` takes the
     port's names or the JAX package's (``pallas`` → ``cuda``, ``blocked``
-    → ``torch``).
+    → ``torch``). ``auto`` sweeps every slab by blocks, as the reference's
+    streamed engine does, and raises where a block is past that engine's
+    dictionary; ``chunked`` sweeps every slab with the flat engine.
     """
     dev = resolve_device(device)
-    engine = resolve_engine(engine)
+    engine = block_engine(resolve_engine(engine), dev)
     if isinstance(source, np.ndarray) or (
         hasattr(source, "shape") and not hasattr(source, "read")
     ):
