@@ -22,15 +22,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the ``SpatialImageAnalysis`` facade on the card, against the plain
    engine (table, kernel outputs and facade queries);
 7. a label space past 2¹⁶ (kernel-v1's other path): ``grid_stack((512,)*3,
-   (8, 8, 8))``, 262,144 labels in int32, through the dictionary retries
-   32 → 64 → 128, against closed-form counts and the plain engine;
+   (8, 8, 8))``, 262,144 labels in int32: one count of every block's
+   dictionary labels, then one sweep at L = 128, against closed-form counts
+   and the plain engine;
 8. the 3D facade at 512³ on the card against the same facade on the plain
    engine, and ``neighbors(connectivity=3)`` with its time and peak memory;
 9. ``analyze_raw`` at 512³ (no host relabel) against ``analyze``, with the
    stages of both;
 10. a dictionary whose [L, 3L] face matrix is past shared memory:
-    ``grid_stack((256, 256, 512), (4, 4, 4))``, 524,288 labels in int32,
-    through the retries 32 → 64 → 128 → 256 → 512 (6.4 GB of faces), against
+    ``grid_stack((256, 256, 512), (4, 4, 4))``, 524,288 labels in int32:
+    one count, then one sweep at L = 512 (6.4 GB of faces), against
     closed-form counts and walls and the plain engine; kernel at L = 512
     against the plain version, and both timed;
 11. a time series at BASELINE config 5's size: three 512³ Voronoi frames
@@ -53,8 +54,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
     slabs on one card: the 512³ stack (against phase 4's table, the plain
     engine sharded and a host stack sharded), the materialised 1024³
     tiling of phase 12 and grid4 of phase 10 (every slab converging at
-    L = 512), with times beside the resident pass and peak memory; the same
-    over one slab a card when there are two or more cards;
+    L = 512, one count and one sweep each), with times beside the resident
+    pass and peak memory; the same over one slab a card when there are two
+    or more cards;
 15. the profiler hook: one converged ``analyze_stack`` of the 512³ stack and
     one of grid4 under ``timing.profile_trace("build/traces")``; the trace
     file exists, the block-sweep kernel is among the device entries, and the
@@ -79,11 +81,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
     ``engine="chunked"``, ``engine="auto"`` must warn, count one reroute,
     launch no kernel and return the closed-form table (every count 8, 12,500,992 walls of 4
     faces), ``engine="chunked"`` the same; ``analyze_sharded_chunked`` of
-    the 512³ stack over four slabs on one card against the resident table.
+    the 512³ stack over four slabs on one card against the resident table;
+19. the count (``block_label_count``, the sweep's dictionary step alone,
+    which ``engine="auto"`` runs before every block sweep): kernel ==
+    plain version, exactly, at voronoi-512 uint16 and int32, 4096² 2D,
+    grid8-512, grid4 and dense-grid2, timed beside its bound and the sweep;
+    then voronoi-512-dense1, phase 3's stack with one block (z 256:264,
+    y 256:272, x 256:384) overwritten by 16,384 fresh labels, past every
+    dictionary: ``auto`` counts, reroutes before any sweep and equals
+    ``engine="chunked"``, resident, streamed at ``slab_z=128`` (one slab by
+    the flat engine, three by the kernel), as frame 0 of a two-frame series
+    and sharded four ways on cuda:0; and the same stack with 600 labels in
+    that block, whose sweep at L = 1024 would need ~104 GB: routed by the
+    memory test with no sweep.
 
 ``engine.reroutes`` is set to 0 at the start and must still be 0 after
 phases 3-17 and again at the end of phase 18: every path that asked for the
-kernel or the plain block engine took it.
+kernel or the plain block engine took it. Phase 19 counts its own.
 
 Kernel times are CUDA events over back-to-back launches (20 for the
 kernel, 5 for the plain version); whole passes are best of 5 on the host
@@ -122,8 +136,8 @@ GRID_CELL = 8
 EXPECT_LABELS_GRID = (SIZE // GRID_CELL) ** 3  # 262,144
 EXPECT_PAIRS_GRID = 3 * (SIZE // GRID_CELL) ** 2 * (SIZE // GRID_CELL - 1)
 # a default block holds 1x2x16 grid cells plus 50 past its far faces: 82
-# dictionary labels, so L doubles 32 -> 64 -> 128 (three sweeps)
-EXPECT_GRID_LAUNCHES, EXPECT_GRID_L = 3, 128
+# dictionary labels, counted before the sweep: one sweep at L = 128
+EXPECT_GRID_LAUNCHES, EXPECT_GRID_L = 1, 128
 GRID4_SHAPE, GRID4_CELL = (256, 256, 512), 4
 _G4 = tuple(s // GRID4_CELL for s in GRID4_SHAPE)
 EXPECT_LABELS_GRID4 = _G4[0] * _G4[1] * _G4[2]  # 524,288
@@ -132,8 +146,8 @@ EXPECT_PAIRS_GRID4 = (
     + _G4[0] * _G4[1] * (_G4[2] - 1)
 )
 # a default block holds 2x4x32 cells plus 200 past its far faces: 456
-# dictionary labels, so L doubles 32 -> ... -> 512 (five sweeps)
-EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L = 5, 512
+# dictionary labels, counted before the sweep: one sweep at L = 512
+EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L = 1, 512
 DENSE2_SHAPE, DENSE2_CELL = (256, 256, 512), 2
 _D2 = tuple(s // DENSE2_CELL for s in DENSE2_SHAPE)
 EXPECT_LABELS_DENSE2 = _D2[0] * _D2[1] * _D2[2]  # 4,194,304
@@ -145,6 +159,9 @@ EXPECT_PAIRS_DENSE2 = (
 # the faces of 2048 blocks at L = 2048 do not fit an 80 GB card
 EXPECT_DENSE2_LAUNCHES, EXPECT_DENSE2_FACE_BYTES = 6, 2048 * 2048 * 3 * 2048 * 4
 SERIES_SEEDS = (2, 3)  # frames after the seed-1 stack
+# voronoi-512-dense1: one default block of phase 3's stack overwritten
+DENSE1_BLOCK = (slice(256, 264), slice(256, 272), slice(256, 384))
+DENSE1_FRESH, DENSE600_FRESH = 16384, 600
 SLAB_Z = 128
 TILES = (2, 2, 2)
 EXPECT_LABELS_TILED, EXPECT_PAIRS_TILED = 16241, 113408
@@ -350,7 +367,7 @@ def phase_grid(log_prefix="[7]"):
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
     from tissue_analysis_tpu_torch.engine import _GOOD_L, analyze_stack
     from tissue_analysis_tpu_torch.ops.block_sweep import (
-        DEFAULT_BLOCK, block_sweep, block_sweep_reference,
+        DEFAULT_BLOCK, block_label_counts, block_sweep, block_sweep_reference,
     )
     from tissue_analysis_tpu_torch.utils import timing
 
@@ -362,15 +379,15 @@ def phase_grid(log_prefix="[7]"):
     ):
         raise AssertionError(f"grid: {n} labels in {stack.dense.dtype}")
     _GOOD_L.pop((stack.shape, n, DEFAULT_BLOCK, 32), None)
-    block_sweep.launches = 0
+    block_sweep.launches = block_label_counts.launches = 0
     table = analyze_stack(stack)
     sync()
-    launches = block_sweep.launches
+    launches, counts = block_sweep.launches, block_label_counts.launches
     L = _GOOD_L[(stack.shape, n, DEFAULT_BLOCK, 32)]
-    if (launches, L) != (EXPECT_GRID_LAUNCHES, EXPECT_GRID_L):
+    if (launches, counts, L) != (EXPECT_GRID_LAUNCHES, 1, EXPECT_GRID_L):
         raise AssertionError(
-            f"grid: expected {EXPECT_GRID_LAUNCHES} launches up to L={EXPECT_GRID_L}, "
-            f"got {launches} up to L={L}"
+            f"grid: expected 1 count and {EXPECT_GRID_LAUNCHES} sweep at L={EXPECT_GRID_L}, "
+            f"got {counts} and {launches} up to L={L}"
         )
     if not np.all(table.count == GRID_CELL ** 3):
         raise AssertionError("grid: a cell's voxel count is not 512")
@@ -390,8 +407,8 @@ def phase_grid(log_prefix="[7]"):
     t_an = best_of(lambda: analyze_stack(stack))
     with timing.collect() as stages:
         analyze_stack(stack)
-    log(f"{log_prefix} grid {SIZE}^3 cell {GRID_CELL}^3: {launches} kernel launches "
-        f"(up to L={L}), {n} labels {dense_dtype}, {table.n_pairs} walls, every count "
+    log(f"{log_prefix} grid {SIZE}^3 cell {GRID_CELL}^3: {counts} count launch, then "
+        f"{launches} sweep launch at L={L}, {n} labels {dense_dtype}, {table.n_pairs} walls, every count "
         f"{GRID_CELL ** 3}, every wall 64 faces; table == plain engine's; kernel at "
         f"L={L} == plain version (max |diff| {err})")
     log(f"{log_prefix} grid kernel L={L} {t_k * 1e3:.3f} ms (bound {bound['bound_ms']:.3f} ms, "
@@ -516,7 +533,7 @@ def phase_grid4(log_prefix="[10]"):
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
     from tissue_analysis_tpu_torch.engine import _GOOD_L, analyze_stack
     from tissue_analysis_tpu_torch.ops.block_sweep import (
-        DEFAULT_BLOCK, block_sweep, block_sweep_reference,
+        DEFAULT_BLOCK, block_label_counts, block_sweep, block_sweep_reference,
     )
     from tissue_analysis_tpu_torch.utils import timing
 
@@ -529,18 +546,18 @@ def phase_grid4(log_prefix="[10]"):
         raise AssertionError(f"grid4: {n} labels in {stack.dense.dtype}")
     key = (stack.shape, n, DEFAULT_BLOCK, 32)
     _GOOD_L.pop(key, None)
-    block_sweep.launches = 0
+    block_sweep.launches = block_label_counts.launches = 0
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     table = analyze_stack(stack)
     sync()
-    launches = block_sweep.launches
+    launches, counts = block_sweep.launches, block_label_counts.launches
     peak = torch.cuda.max_memory_allocated() - base
     L = _GOOD_L[key]
-    if (launches, L) != (EXPECT_GRID4_LAUNCHES, EXPECT_GRID4_L):
+    if (launches, counts, L) != (EXPECT_GRID4_LAUNCHES, 1, EXPECT_GRID4_L):
         raise AssertionError(
-            f"grid4: expected {EXPECT_GRID4_LAUNCHES} launches up to L={EXPECT_GRID4_L}, "
-            f"got {launches} up to L={L}"
+            f"grid4: expected 1 count and {EXPECT_GRID4_LAUNCHES} sweep at L={EXPECT_GRID4_L}, "
+            f"got {counts} and {launches} up to L={L}"
         )
     if not 3 * L * L * 4 > 232448:
         raise AssertionError(f"grid4: an [L, 3L] face matrix at L={L} would fit shared memory")
@@ -562,8 +579,8 @@ def phase_grid4(log_prefix="[10]"):
     t_an = best_of(lambda: analyze_stack(stack))
     with timing.collect() as stages:
         analyze_stack(stack)
-    log(f"{log_prefix} grid {GRID4_SHAPE} cell {GRID4_CELL}^3: {launches} kernel launches "
-        f"(up to L={L}), {n} labels {str(dense.dtype)[6:]}, "
+    log(f"{log_prefix} grid {GRID4_SHAPE} cell {GRID4_CELL}^3: {counts} count launch, then "
+        f"{launches} sweep launch at L={L}, {n} labels {str(dense.dtype)[6:]}, "
         f"{table.n_pairs} walls, every "
         f"count {cell3}, every wall 16 faces; table == plain engine's; kernel at L={L} "
         f"== plain version (max |diff| {err}); the first analyze_stack took "
@@ -840,7 +857,7 @@ def phase_sharded(stack, table, tiled, grid4, log_prefix="[14]"):
         t_res = best_of(lambda: analyze_stack(g4), reps=3, warmup=1)
         del g4
         log(f"{log_prefix} sharded grid4 on {label}: {lg4} kernel launches ({slabs} slabs, "
-            f"L 32 -> {_GOOD_L[key]} each), table == resident; converged analyze_sharded "
+            f"each counted, then swept once at L={_GOOD_L[key]}), table == resident; converged analyze_sharded "
             f"{t_sh * 1e3:.3f} ms vs analyze_stack resident {t_res * 1e3:.3f} ms (best of 3)")
         return l512 + l1024, lg4
 
@@ -901,7 +918,7 @@ def phase_profiler(stack, grid4, log_prefix="[15]"):
             f"in {sum(r[1] for r in rows)} launches and copies: block_sweep_kernel "
             f"{sweep[0][2] / 1e3:.3f} ms; {len(others)} other kernels "
             f"{sum(r[2] for r in others) / 1e3:.3f} ms in {sum(r[1] for r in others)} launches "
-            f"(combine + pair reduce, and the overflow check's reduce); copies and "
+            f"(the count, combine + pair reduce, and the overflow check's reduce); copies and "
             f"memsets {sum(r[2] for r in copies) / 1e3:.3f} ms")
         for key, calls, us in copies + others[:12]:
             short = key.replace("void ", "").replace("at::native::", "").replace(
@@ -987,7 +1004,8 @@ def no_reroute(phase: str) -> None:
 
 def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
     """The flat engine against the kernel engine's tables, dense-grid2's
-    capacity route, and the flat engine sharded; returns its record."""
+    capacity route, and the flat engine sharded; returns its record and
+    dense-grid2's stack."""
     import warnings
 
     import numpy as np
@@ -997,7 +1015,7 @@ def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
     from tissue_analysis_tpu_torch.core.stack import LabeledStack
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
     from tissue_analysis_tpu_torch.ops import segred, stencil
-    from tissue_analysis_tpu_torch.ops.block_sweep import block_sweep
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_label_counts, block_sweep
     from tissue_analysis_tpu_torch.parallel import Mesh, analyze_sharded, analyze_sharded_chunked
     from tissue_analysis_tpu_torch.utils import timing
 
@@ -1093,15 +1111,17 @@ def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
         warnings.simplefilter("always")
         sync()
         t0 = time.perf_counter()
-        block_sweep.launches = 0
+        block_sweep.launches = block_label_counts.launches = 0
         auto = engine.analyze_stack(st)
         sync()
         t_auto = time.perf_counter() - t0
     warned = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    # the mean alone routes it: no sweep, and no count either
     if (engine.reroutes != 1 or len(warned) != 1 or 'engine="chunked"' not in warned[0]
-            or block_sweep.launches != 0):
+            or block_sweep.launches != 0 or block_label_counts.launches != 0):
         raise AssertionError(f"dense-grid2 auto: {engine.reroutes} reroutes, "
-                             f"{block_sweep.launches} kernel launches, warnings {warned}")
+                             f"{block_sweep.launches} sweep and {block_label_counts.launches} "
+                             f"count launches, warnings {warned}")
     engine.reroutes = 0
     if not (auto.n_labels == EXPECT_LABELS_DENSE2 and np.all(auto.count == DENSE2_CELL ** 3)):
         raise AssertionError("dense-grid2: a cell's voxel count is not 8")
@@ -1125,7 +1145,7 @@ def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
     log(f"{log_prefix} dense-grid2 {DENSE2_SHAPE} cell {DENSE2_CELL}^3 ({st.n_labels} labels, "
         f"{EXPECT_LABELS_DENSE2 // 2048} a block; made and relabeled in {t_make:.1f} s): "
         f"engine='cuda' raised after {launches} launches: {msg}")
-    log(f"{log_prefix} dense-grid2 engine='auto': 1 reroute before any launch, 1 warning, table in "
+    log(f"{log_prefix} dense-grid2 engine='auto': 1 reroute before any launch (no count), 1 warning, table in "
         f"{t_auto * 1e3:.3f} ms == closed form ({auto.n_pairs} walls of 4 faces, every count 8) "
         f"== engine='chunked'; analyze_stack chunked {t_flat * 1e3:.3f} ms (one pass), device "
         f"side {t_flat_dev * 1e3:.3f} ms, peak device memory above the stack "
@@ -1136,7 +1156,8 @@ def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
         "shape": "dense-grid2", "ms": t_flat * 1e3, "device_ms": t_flat_dev * 1e3,
         "peak_bytes": peak, "auto_ms": t_auto * 1e3, "cuda_launches_before_raise": launches,
     })
-    del st, auto, img
+    del auto, img
+    dense2 = st
 
     # ---- the flat engine sharded: four slabs on one card
     mesh = Mesh((torch.device("cuda:0"),) * 4)
@@ -1157,7 +1178,166 @@ def phase_flat(stack, table, img2d, grid8, grid4, log_prefix="[18]"):
                    "kernel_engine_ms": t_sh_k * 1e3})
     no_reroute("phase 18")
     log(f"{log_prefix} the phase took {time.perf_counter() - t_phase:.1f} s")
+    return record, dense2
+
+
+COUNT_OPS_PER_VOXEL = 4  # the live test, two compares, the vote
+
+
+def count_bound(dense, block) -> dict:
+    """The least time the card could take for one count of ``dense``: the
+    labels and the far-face planes (each plane between two blocks once)
+    read once and 4 B a block written, over the memory rate, or the integer
+    operations over the integer rate, whichever is larger."""
+    Z, Y, X = dense.shape
+    gz, gy, gx = (-(-s // b) for s, b in zip(dense.shape, block))
+    read = Z * Y * X + (gz - 1) * Y * X + (gy - 1) * Z * X + (gx - 1) * Z * Y
+    bytes_ = read * dense.element_size() + 4 * gz * gy * gx
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, COUNT_OPS_PER_VOXEL * read / INT_OPS_PER_S
+    return {"bytes": bytes_, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_count(cases, log_prefix="[19]"):
+    """The count kernel against its plain version at the main path's shapes
+    (``cases``: name, dense, n, block), timed beside its bound and beside
+    the sweep at the L the count gives; returns one record a shape."""
+    import torch
+
+    from tissue_analysis_tpu_torch.ops.block_sweep import (
+        block_label_counts, block_label_counts_reference, block_sweep, max_dict_size,
+    )
+
+    cap = max_dict_size()
+    record = []
+    for name, dense, n, block in cases:
+        k = block_label_counts(dense, n, block, cap)
+        r = block_label_counts_reference(dense, n, block, cap)
+        sync()
+        err = max_abs_diff(k, r)
+        if not torch.equal(k, r):
+            raise AssertionError(f"count {name}: kernel and plain version differ (max |diff| {err})")
+        m = int(k.max())
+        L = 32
+        while L < m <= cap:
+            L = min(2 * L, cap)
+        t_k = event_ms(lambda: block_label_counts(dense, n, block, cap))
+        t_p = event_ms(lambda: block_label_counts_reference(dense, n, block, cap), reps=3, warmup=1)
+        # a block past the cap: no sweep can take the stack
+        t_s = event_ms(lambda: block_sweep(dense, n, block, L)) if m <= cap else None
+        bound = count_bound(dense, block)
+        sweep = f"sweep at L={L} {t_s * 1e3:.3f} ms" if t_s else "no sweep can take it"
+        log(f"{log_prefix} count {name}: kernel == plain version, exactly ({k.numel()} blocks, "
+            f"largest {m if m <= cap else f'> {cap} (saturated)'}, cap {cap}); kernel "
+            f"{t_k * 1e3:.3f} ms (bound {bound['bound_ms']:.3f} ms, {bound['bytes']:,} B), "
+            f"plain {t_p * 1e3:.3f} ms, {sweep}")
+        record.append({"shape": name, "max_abs_err": float(err), "ms": t_k * 1e3,
+                       "plain_ms": t_p * 1e3, "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"], "largest": m, "sweep_L": L,
+                       "sweep_ms": None if t_s is None else t_s * 1e3})
     return record
+
+
+def phase_routes(img, frame2, log_prefix="[19]"):
+    """voronoi-512-dense1 (16,384 fresh labels in one block) resident,
+    streamed, as a series frame and sharded, and the 600-label block: every
+    ``auto`` path counts and routes before any sweep. Returns the count
+    launches of each path."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch import engine
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.ops.block_sweep import block_label_counts, block_sweep
+    from tissue_analysis_tpu_torch.parallel import Mesh, analyze_sharded
+    from tissue_analysis_tpu_torch.series import analyze_series
+    from tissue_analysis_tpu_torch.streaming import analyze_streamed
+
+    def with_block(fresh):
+        """Phase 3's stack with the DENSE1_BLOCK block overwritten by
+        ``fresh`` new labels (runs of equal size along the flat order)."""
+        a = np.array(np.asarray(img), copy=True)
+        base = int(a.max()) + 1
+        k = 8 * 16 * 128
+        a[DENSE1_BLOCK] = (base + np.arange(k) * fresh // k).reshape(8, 16, 128)
+        return a, base
+
+    counts = {}
+
+    def routed(what, fn, sweeps, n_counts, reroutes=1):
+        """One path with the counts at 0 just before it, read just after."""
+        engine.reroutes = 0
+        block_sweep.launches = block_label_counts.launches = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            dt = time.perf_counter() - t0
+        warned = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+        got = (block_sweep.launches, block_label_counts.launches, engine.reroutes, len(warned))
+        if got != (sweeps, n_counts, reroutes, reroutes):
+            raise AssertionError(f"{what}: (sweeps, counts, reroutes, warnings) {got}, "
+                                 f"expected {(sweeps, n_counts, reroutes, reroutes)}: {warned}")
+        engine.reroutes = 0
+        counts[what] = block_label_counts.launches
+        return out, dt, warned
+
+    t0 = time.perf_counter()
+    img1, base = with_block(DENSE1_FRESH)
+    st = LabeledStack.from_array(img1, background=1, device="cuda")
+    t_make = time.perf_counter() - t0
+    auto, t_auto, warned = routed("dense1", lambda: engine.analyze_stack(st), 0, 1)
+    if "more than" not in warned[0]:
+        raise AssertionError(f"dense1: {warned[0]}")
+    tables_equal(engine.analyze_stack(st, engine="chunked"), auto, "dense1 auto vs chunked")
+    fresh = auto.ids >= base
+    if int(fresh.sum()) != DENSE1_FRESH or not np.all(auto.count[fresh] == 1):
+        raise AssertionError("dense1: the fresh labels are not 16,384 of one voxel each")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t_auto_best = best_of(lambda: engine.analyze_stack(st), reps=3, warmup=1)
+    t_flat = best_of(lambda: engine.analyze_stack(st, engine="chunked"), reps=3, warmup=1)
+    engine.reroutes = 0
+    log(f"{log_prefix} voronoi-{SIZE}-dense1 ({st.n_labels} labels, {DENSE1_FRESH} of them in "
+        f"one block; made and relabeled in {t_make:.1f} s): auto 1 count launch, 0 sweeps, 1 "
+        f"reroute, 1 warning; table == engine='chunked', every fresh label 1 voxel; auto "
+        f"{t_auto_best * 1e3:.3f} ms (first {t_auto * 1e3:.3f} ms) vs chunked "
+        f"{t_flat * 1e3:.3f} ms (best of 3)")
+    log(f"{log_prefix} dense1 warning: {warned[0]}")
+
+    streamed, t_stream, _ = routed("dense1 streamed", lambda: analyze_streamed(
+        img1, background=1, slab_z=SLAB_Z, device="cuda"), 3, 4)
+    tables_equal(auto, streamed, "dense1 streamed vs resident")
+    frames, t_series, _ = routed("dense1 series", lambda: analyze_series(
+        [img1, frame2], background=1, devices=["cuda"]), 1, 2)
+    tables_equal(auto, frames[0], "dense1 series frame 0 vs resident")
+    tables_equal(engine.analyze_stack(LabeledStack.from_array(frame2, background=1, device="cuda")),
+                 frames[1], "dense1 series frame 1 vs analyze_stack")
+    mesh = Mesh((torch.device("cuda:0"),) * 4)
+    # slabs 0 and 1 are counted, slab 2 is past: the whole stack goes to
+    # the sharded flat engine before any sweep
+    sharded, t_sh, _ = routed("dense1 sharded", lambda: analyze_sharded(st, mesh), 0, 3)
+    tables_equal(auto, sharded, "dense1 sharded vs resident")
+    log(f"{log_prefix} dense1 streamed slab_z={SLAB_Z}: 4 counts, 3 sweeps, slab 2 by the flat "
+        f"engine, table == resident, {t_stream * 1e3:.3f} ms; series [dense1, seed {SERIES_SEEDS[0]}]: "
+        f"only frame 0 routed (2 counts, 1 sweep), tables == analyze_stack, {t_series * 1e3:.3f} ms; "
+        f"sharded 4 slabs on cuda:0: 3 counts, 0 sweeps, the sharded flat engine, table == "
+        f"resident, {t_sh * 1e3:.3f} ms")
+    del img1, st, auto, streamed, frames, sharded
+
+    img6, _ = with_block(DENSE600_FRESH)
+    st6 = LabeledStack.from_array(img6, background=1, device="cuda")
+    got6, t6, warned6 = routed("dense600", lambda: engine.analyze_stack(st6), 0, 1)
+    if "L=1024" not in warned6[0] or "bytes" not in warned6[0]:
+        raise AssertionError(f"dense600: {warned6[0]}")
+    tables_equal(engine.analyze_stack(st6, engine="chunked"), got6, "dense600 auto vs chunked")
+    log(f"{log_prefix} 600 labels in one block ({st6.n_labels} labels): 1 count, 0 sweeps, routed "
+        f"by the memory test, table == engine='chunked', {t6 * 1e3:.3f} ms: {warned6[0]}")
+    return counts
 
 
 def phase_adversarial(log_prefix="[13]") -> int:
@@ -1218,8 +1398,10 @@ def run_phases(futures) -> int:
     from tissue_analysis_tpu_torch.core.synthetic import voronoi_stack
     from tissue_analysis_tpu_torch.engine import analyze_stack
     from tissue_analysis_tpu_torch.graph.from_image import graph_from_table
+    from tissue_analysis_tpu_torch.engine import BLOCK_2D
     from tissue_analysis_tpu_torch.ops.block_sweep import (
         DEFAULT_BLOCK,
+        block_label_counts,
         block_sweep,
         block_sweep_reference,
         build_kernel,
@@ -1239,7 +1421,8 @@ def run_phases(futures) -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     build_kernel()
-    log(f"[2] build: block_sweep.cu compiled and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[2] build: block_sweep.cu (block_sweep and block_label_count) compiled and loaded "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernel vs plain version on the card
     engine.reroutes = 0
@@ -1273,7 +1456,7 @@ def run_phases(futures) -> int:
         f"other series frames)")
 
     # ---- 4. the main path at full size, through the kernel
-    block_sweep.launches = 0
+    block_sweep.launches = block_label_counts.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stack = LabeledStack.from_array(img, background=1, device="cuda")
@@ -1281,10 +1464,11 @@ def run_phases(futures) -> int:
     graph = graph_from_table(table)
     sync()
     t_first = time.perf_counter() - t0
-    launches = block_sweep.launches
+    launches, count_launches = block_sweep.launches, block_label_counts.launches
     peak_cuda = torch.cuda.max_memory_allocated()
-    if launches < 1:
-        raise AssertionError("the main path did not launch the block_sweep kernel")
+    if launches < 1 or count_launches < 1:
+        raise AssertionError(f"the main path launched the block_sweep kernel {launches} and "
+                             f"the block_label_count kernel {count_launches} time(s)")
     if (table.n_labels, table.n_pairs) != (EXPECT_LABELS, EXPECT_PAIRS):
         raise AssertionError(
             f"expected {EXPECT_LABELS} labels / {EXPECT_PAIRS} walls, got "
@@ -1302,7 +1486,7 @@ def run_phases(futures) -> int:
         raise AssertionError(f"graph has {graph.nb_vertices()} vertices")
     if not (np.isfinite(vol).all() and np.isfinite(bary).all() and (vol > 0).all()):
         raise AssertionError("non-finite or empty vertex features")
-    log(f"[4] main path: {launches} kernel launch(es), {table.n_labels} labels, "
+    log(f"[4] main path: {count_launches} count and {launches} sweep launch(es), {table.n_labels} labels, "
         f"{table.n_pairs} walls, graph {graph.nb_vertices()} vertices / "
         f"{graph.nb_edges()} edges, table == plain version's; first pass "
         f"{t_first:.3f} s; peak device memory {peak_cuda / 2**30:.2f} GiB "
@@ -1345,6 +1529,7 @@ def run_phases(futures) -> int:
     lg4, eg4, kg4, pg4, bg4, grid4 = phase_grid4()
     frames = [img] + [SpatialImage(a) for a, _ in done]
     l_series = phase_series(frames, [t_gen] + [t for _, t in done])
+    frame2 = done[0][0]  # the seed-2 frame, phase 19's second series frame
     del frames, done
     l_stream, tiled = phase_stream(img)
 
@@ -1362,9 +1547,27 @@ def run_phases(futures) -> int:
     no_reroute("phases 3-17")
 
     # ---- 18. the flat engine: no per-block dictionary, no kernel of its own
-    flat = phase_flat(stack, table, img2d, grid8, grid4)
+    flat, dense2 = phase_flat(stack, table, img2d, grid8, grid4)
+
+    # ---- 19. the count before the sweep, and the stacks it routes
+    t19 = time.perf_counter()
+    st2d = LabeledStack.from_array(img2d[0], background=1, device="cuda")
+    g8 = LabeledStack.from_array(grid8[0], background=None, device="cuda")
+    g4 = LabeledStack.from_array(grid4[0], background=None, device="cuda")
     del img2d, grid8, grid4
-    log(f"all 18 phases took {time.perf_counter() - t_start:.1f} s")
+    counts = phase_count([
+        (f"voronoi-{SIZE} uint16", dense16, n, DEFAULT_BLOCK),
+        (f"voronoi-{SIZE} int32", dense32, n, DEFAULT_BLOCK),
+        (f"voronoi-{SIZE_2D}^2 2D block 1x128x128", st2d.dense[None], st2d.n_labels, BLOCK_2D),
+        (f"grid8-{SIZE} int32", g8.dense, g8.n_labels, DEFAULT_BLOCK),
+        ("grid4 int32", g4.dense, g4.n_labels, DEFAULT_BLOCK),
+        ("dense-grid2 int32", dense2.dense, dense2.n_labels, DEFAULT_BLOCK),
+    ])
+    del st2d, g8, g4, dense2, dense32
+    route_counts = phase_routes(img, frame2)
+    del frame2
+    log(f"[19] the phase took {time.perf_counter() - t19:.1f} s")
+    log(f"all 19 phases took {time.perf_counter() - t_start:.1f} s")
 
     def shape(name, launches_main, err, t_k, t_p, bound):
         return {"shape": name, "launches_main_path": launches_main, "max_abs_err": float(err),
@@ -1419,10 +1622,29 @@ def run_phases(futures) -> int:
         else "operations",
         "library_ms": None,
         "shapes": k2_shapes,
-        # grid4, four slabs on one card, each from L = 32 to 512
+        # grid4, four slabs on one card, each counted and swept at L = 512
         "launches_sharded": l_sh_g4,
         # one profiled converged pass of grid4
         "launches_profiler": l_prof_g4,
+    }, {
+        # the sweep's dictionary step alone, before every block sweep under
+        # engine="auto"; no TPU kernel (the reference catches a failed sweep
+        # and falls back instead); times at voronoi-512 uint16
+        "name": "block_label_count",
+        "route": "cuda",
+        "source": src,
+        "replaces": None,
+        "launches": count_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in counts),
+        "ms": counts[0]["ms"],
+        "plain_ms": counts[0]["plain_ms"],
+        "bound_ms": counts[0]["bound_ms"],
+        "bound_by": counts[0]["bound_by"],
+        # no single PyTorch call counts distinct labels a block
+        "library_ms": None,
+        "shapes": counts,
+        # voronoi-512-dense1 resident, streamed, series, sharded; dense600
+        "launches_routes": route_counts,
     }],
         # plain PyTorch (scatter and sort library kernels), the yardstick of
         # the hand kernel: whole analyze_stack and device side, ms, per shape

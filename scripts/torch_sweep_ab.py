@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's block-sweep CUDA kernel of one or more source trees, in turns.
+"""Time the port's block-sweep CUDA kernel and engine pass of one or more source trees, in turns.
 
 Run from the repository root on a machine with a CUDA card and nvcc::
 
@@ -26,8 +26,15 @@ the order given: ``--order ABBA`` with two trees runs A B B A, and
 version (``torch.equal`` on every output), then times it with CUDA events
 over ``--reps`` back-to-back launches after three warmups, and the host
 time a launch takes to enqueue on ``voronoi-64`` (the mean over 1000 calls
-without a sync, the device then being idle behind the host). Every result
-is one JSON line, with the card's name and power limit.
+without a sync, the device then being idle behind the host). Then the
+engine on the same stacks (``engine="auto"``, on the card, a stack of
+segment ids ``0..n-1``), fenced on the host clock: ``first_ms``, the best
+of three ``analyze_stack`` calls each after the converged dictionary sizes
+are forgotten (what a new shape pays: the overflow reruns, or a count);
+``converged_ms``, the best of seven calls; ``first_device_ms`` and
+``device_ms``, the same two for ``finish_stack(dispatch_stack(...))``, the
+device side without the readback and host assembly. Every result is one JSON line, with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -134,6 +141,34 @@ def worker(tree: str, reps: int, smi: str) -> None:
         out["cases"][name] = {"equal": equal(fn(), ref), "ms": events_ms(fn)}
         del dense, ref
         torch.cuda.empty_cache()
+    from tissue_analysis_tpu_torch import engine
+    from tissue_analysis_tpu_torch.core.stack import LabeledStack
+
+    def best_ms(fn, reps, before=lambda: None):
+        best = float("inf")
+        for _ in range(reps):
+            before()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    for name in CASES:
+        dense, n = load(name)
+        st = LabeledStack(dense=dense, ids=np.arange(n), voxelsize=(1.0,) * 3,
+                          background_segment=None)
+        out["cases"][name]["engine"] = {
+            "first_ms": best_ms(lambda: engine.analyze_stack(st), 3, engine._GOOD_L.clear),
+            "converged_ms": best_ms(lambda: engine.analyze_stack(st), 7),
+            "first_device_ms": best_ms(lambda: engine.finish_stack(engine.dispatch_stack(st)),
+                                       3, engine._GOOD_L.clear),
+            "device_ms": best_ms(lambda: engine.finish_stack(engine.dispatch_stack(st)), 7),
+        }
+        del st, dense
+        torch.cuda.empty_cache()
+
     dense, n = load(HOST_CASE)
     for _ in range(20):
         bs.block_sweep(dense, n)
@@ -184,8 +219,12 @@ def main() -> int:
             line = res.stdout.strip().splitlines()[-1]
             lines.append(line)
             rec = json.loads(line)
-            summary = ", ".join(f"{c} {v['ms']:.3f} ms{'' if v['equal'] else ' UNEQUAL'}"
-                                for c, v in rec["cases"].items())
+            summary = ", ".join(
+                f"{c} {v['ms']:.3f} ms{'' if v['equal'] else ' UNEQUAL'} (engine first "
+                f"{v['engine']['first_ms']:.3f}, converged {v['engine']['converged_ms']:.3f}; "
+                f"device first {v['engine']['first_device_ms']:.3f}, converged "
+                f"{v['engine']['device_ms']:.3f} ms)"
+                for c, v in rec["cases"].items())
             print(f"{letter} {tree}: {summary}; host {rec['host_us_per_launch_64']:.1f} us/launch",
                   flush=True)
     if a.out:

@@ -98,7 +98,9 @@ def test_2d_lift_is_a_view():
 def test_converged_dict_size_keyed_by_block(monkeypatch):
     """A lifted 2D image (block (1, 128, 128)) and the same pixels as a
     [1, Y, X] stack (default block) share shape and label count but not the
-    converged dictionary size."""
+    converged dictionary size: the named block engine reruns the 2D sweep
+    to L = 64 and starts the 3D one at 32; ``auto`` counts and sweeps each
+    once at its own size."""
     img = np.asarray(voronoi_stack((128, 128), 60, seed=2))
     st2 = LabeledStack.from_array(img, background=1, device="cpu")
     st3 = LabeledStack.from_array(img[None], background=1, device="cpu")
@@ -112,13 +114,20 @@ def test_converged_dict_size_keyed_by_block(monkeypatch):
         return real(dense, n, block, L)
 
     monkeypatch.setattr(engine, "block_sweep_reference", recording)
-    t2 = engine.analyze_stack(st2)
+    t2 = engine.analyze_stack(st2, "torch")
     assert calls == [(engine.BLOCK_2D, 32), (engine.BLOCK_2D, 64)]
     calls.clear()
-    t3 = engine.analyze_stack(st3)
+    t3 = engine.analyze_stack(st3, "torch")
     assert calls == [(DEFAULT_BLOCK, 32)]
     calls.clear()
     assert_tables_equal(t2, engine.analyze_stack(st2))
-    assert calls == [(engine.BLOCK_2D, 64)]
+    assert_tables_equal(t3, engine.analyze_stack(st3))
+    assert calls == [(engine.BLOCK_2D, 64), (DEFAULT_BLOCK, 32)]
+    calls.clear()
+    for block in (engine.BLOCK_2D, DEFAULT_BLOCK):
+        engine._GOOD_L.pop(((1, 128, 128), st2.n_labels, block, 32), None)
+    assert_tables_equal(t3, engine.analyze_stack(st3))
+    assert_tables_equal(t2, engine.analyze_stack(st2))
+    assert calls == [(DEFAULT_BLOCK, 32), (engine.BLOCK_2D, 64)]
     np.testing.assert_array_equal(t2.count, t3.count)
     np.testing.assert_array_equal(t2.wall_face_counts, t3.wall_face_counts[:, 1:])

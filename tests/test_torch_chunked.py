@@ -388,7 +388,8 @@ def test_ordinary_image_does_not_reroute(stacks, jax_tables):
 def test_capacity_is_decided_from_sizes_alone(monkeypatch):
     """``block_capacity``: the engine's bound, and on a card the L whose
     face counts fill its memory (here a stand-in card of 80 GiB).
-    ``past_capacity`` holds the labels a block against it."""
+    ``past_capacity`` holds the labels a block against it: ``auto``'s free
+    first test, which routes with no count. The count decides the rest."""
     assert engine.block_capacity(8192, "cpu", "torch") == bs.PLAIN_MAX_DICT == 4096
     props = type("Props", (), {"total_memory": 80 << 30})
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: props)
@@ -407,41 +408,88 @@ def test_capacity_is_decided_from_sizes_alone(monkeypatch):
     assert engine.block_engine("auto", "cpu") == "torch"
     assert engine.block_engine("auto", "cuda:1") == "cuda"
     assert engine.block_engine("chunked", "cuda:1") == "chunked"
+    monkeypatch.undo()
+
+    # the mean shortcut launches no count; a stack inside it is counted once
+    counts = _count_calls(monkeypatch)
+    engine.reroutes = 0
+    with pytest.warns(UserWarning, match="16384 labels or more"):
+        engine.analyze(_distinct((8, 16, 128)), device="cpu")
+    assert engine.reroutes == 1 and counts == []
+    engine.analyze(_dense_block_image((8, 16, 256)), device="cpu", engine="chunked")
+    assert counts == []
+    with pytest.warns(UserWarning, match="more than 4,096 dictionary labels"):
+        engine.analyze(_dense_block_image((8, 16, 256)), device="cpu")
+    assert engine.reroutes == 2 and counts == [4096]
 
 
-def test_label_space_without_voxels_does_not_reroute():
+def _count_calls(monkeypatch) -> list:
+    """Record the cap of every plain count (the count on the CPU)."""
+    calls = []
+    real = bs.block_label_counts_reference
+
+    def recording(dense, n, block, cap):
+        calls.append(cap)
+        return real(dense, n, block, cap)
+
+    monkeypatch.setattr(bs, "block_label_counts_reference", recording)
+    return calls
+
+
+def _dense_block_image(shape):
+    """Background 1, and in the block at the origin 5,462 labels of 3
+    voxels each: inside the capacity by the mean (``shape`` holds at least
+    two blocks), past every dictionary in that one block."""
+    img = np.ones(shape, np.int32)
+    img[:8, :16, :128] = 2 + np.arange(8 * 16 * 128).reshape(8, 16, 128) // 3
+    return img
+
+
+def test_label_space_without_voxels_does_not_reroute(monkeypatch):
     """A raw id range or a bucketed label space: 20,000 segment ids over one
-    block, 10 of them with voxels. Past the capacity by the label space, so
-    the labels with voxels are counted, and the block engine takes it."""
+    block, 10 of them with voxels. Past the capacity by its mean, but the
+    stack does not say that every id has voxels, so the mean is no
+    evidence: the count decides (10 labels), and the block engine sweeps
+    once."""
     rng = np.random.default_rng(5)
     lut = np.sort(rng.choice(20000, 10, replace=False)).astype(np.int32)
     dense = lut[rng.integers(0, 10, (8, 16, 128))]
     st = LabeledStack.from_numpy(dense, np.arange(20000), (1.0,) * 3, None, device="cpu")
     assert engine.past_capacity(20000, st.shape, "cpu", "torch") is not None
+    counts = _count_calls(monkeypatch)
     engine.reroutes = 0
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         with timing.collect() as t:
             got = engine.analyze_stack(st)
-    assert engine.reroutes == 0
-    assert any(s.name == "device sweep (block)" for s in t.stages)
+    assert engine.reroutes == 0 and counts == [4096]
+    assert sum(s.name == "device sweep (block)" for s in t.stages) == 1
     assert_tables_equal(engine.analyze_stack_chunked(st), got)
 
 
 def test_nothing_reroutes_after_a_launch(monkeypatch):
-    """One block of 5,462 labels beside an empty one: 2,732 a block, inside
-    the capacity, so ``auto`` sweeps by blocks and raises at L=4096 as an
-    explicit engine does. A face buffer the device cannot hold, or any other
-    failure of a sweep, raises under every engine name too."""
-    img = np.ones((8, 16, 256), np.int32)
-    img[:, :, :128] = 2 + np.arange(8 * 16 * 128).reshape(8, 16, 128) // 3
+    """One block of 5,462 labels beside an empty one: 2,732 a block by the
+    mean, inside the capacity. The count finds the dense block past L=4096
+    before any sweep, so ``auto`` warns, counts one reroute and returns the
+    JAX chunked table with no block sweep. A stack that the count lets
+    through (83 labels a block: L=128) raises under ``auto`` as under
+    ``torch`` where its face buffer cannot be had or its sweep fails."""
+    img = _dense_block_image((8, 16, 256))
     st = LabeledStack.from_array(img, background=1, device="cpu")
     assert st.n_labels == 5463
+    ref = jax_engine.analyze_stack_chunked(JaxStack.from_array(img, background=1))
     engine.reroutes = 0
-    with pytest.raises(RuntimeError, match='L=4096.*engine="chunked"'):
-        engine.analyze_stack(st)
-    assert engine.analyze_stack(st, engine="chunked").n_labels == 5463
+    with timing.collect() as t:
+        with pytest.warns(UserWarning, match=r"one of 2\) holds more than 4,096 dictionary "
+                                             r'labels.*L=4096.*engine="chunked"'):
+            got = engine.analyze_stack(st)
+    assert engine.reroutes == 1
+    assert [s.name for s in t.stages if s.name.startswith("device")] == [
+        "device count (block labels)", "device sweep (flat moments)", "device sweep (flat pairs)"]
+    assert_tables_equal(ref, got)
 
+    img[:, :, :128] = 2 + np.arange(8 * 16 * 128).reshape(8, 16, 128) // 200
+    st = LabeledStack.from_array(img, background=1, device="cpu")
     real = bs._faces_buffer
 
     def small_device(B, L, block, dev):
@@ -452,6 +500,7 @@ def test_nothing_reroutes_after_a_launch(monkeypatch):
     def broken(*a):
         raise RuntimeError("block_sweep kernel launch failed: CUDA error 700")
 
+    engine.reroutes = 0
     for stand_in, exc, match in ((small_device, ValueError, "L=128 need 393,216 bytes"),
                                  (broken, RuntimeError, "launch failed")):
         monkeypatch.setattr(bs, "_faces_buffer", stand_in)
@@ -461,11 +510,38 @@ def test_nothing_reroutes_after_a_launch(monkeypatch):
     assert engine.reroutes == 0
 
 
+def test_memory_route_before_any_sweep(monkeypatch):
+    """A device that cannot give a sweep's outputs at the counted L (a
+    stand-in for a card's free memory): ``auto`` gives the stack to the
+    flat engine after the count, before any sweep; with room to spare it
+    sweeps once at that L."""
+    img = _dense_block_image((8, 16, 256))
+    img[:, :, :128] //= 70  # 79 labels in the first block: L = 128
+    st = LabeledStack.from_array(img, background=None, device="cpu")
+    need = engine.sweep_bytes(2, 128)
+    ref = jax_engine.analyze_stack_chunked(JaxStack.from_array(img, background=None))
+    for give, routed in ((need - 1, True), (need, False)):
+        monkeypatch.setattr(engine, "givable_bytes", lambda dev, want: give)
+        engine.reroutes = 0
+        engine._GOOD_L.clear()
+        with timing.collect() as t:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = engine.analyze_stack(st)
+        sweeps = [s.name for s in t.stages if s.name == "device sweep (block)"]
+        assert (engine.reroutes, len(caught), len(sweeps)) == ((1, 1, 0) if routed else (0, 0, 1))
+        if routed:
+            assert f"L=128, and its outputs there ([B, L, 3L] face counts and the rest) need {need:,} bytes; cpu can give {need - 1:,}" in str(caught[0].message)
+        assert_tables_equal(ref, got)
+
+
 def test_sharded_auto_reroutes_whole_and_streamed_sweeps_as_named():
     """Two slabs of one block each, the second of 16,384 labels: 8,192 a
     block. ``analyze_sharded`` under ``auto`` goes to the sharded flat
-    engine before any sweep; a streamed slab does not hold every label, so
-    ``auto`` sweeps it by blocks and raises, and ``chunked`` answers."""
+    engine before any sweep. Streamed, ``auto`` counts each slab on its own:
+    the first is swept by blocks, the second by the flat engine, and the
+    table equals the JAX chunked one; a named engine applies to every slab,
+    so ``torch`` raises and ``chunked`` answers."""
     img = np.ones((16, 16, 128), np.int32)
     img[8:] = _distinct((8, 16, 128))
     st = LabeledStack.from_array(img, background=1, device="cpu")
@@ -479,10 +555,71 @@ def test_sharded_auto_reroutes_whole_and_streamed_sweeps_as_named():
     assert_tables_equal(ref, got)
     with pytest.raises(RuntimeError, match='engine="chunked"'):
         analyze_sharded(st, make_mesh(2, device="cpu"), engine="torch")
+    with timing.collect() as t:
+        with pytest.warns(UserWarning, match="more than 4,096 dictionary labels"):
+            got = streaming.analyze_streamed(img, background=1, slab_z=8, device="cpu")
+    assert engine.reroutes == 2
+    names = [s.name for s in t.stages]
+    assert names.count("device sweep (block)") == names.count("device sweep (flat pairs)") == 1
+    assert names.count("device count (block labels)") == 2
+    assert_tables_equal(ref, got)
     with pytest.raises(RuntimeError, match='L=4096.*engine="chunked"'):
-        streaming.analyze_streamed(img, background=1, slab_z=8, device="cpu")
+        streaming.analyze_streamed(img, background=1, slab_z=8, device="cpu", engine="torch")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert_tables_equal(ref, streaming.analyze_streamed(
             img, background=1, slab_z=8, device="cpu", engine="chunked"))
-    assert engine.reroutes == 1
+    assert engine.reroutes == 2
+
+
+# ------------------------------- one dense block through every "auto" path
+def _dense_block_stack_2x():
+    """Two 8-deep slabs of two blocks each; the dense block lies in the
+    second slab: 1,366 labels a block by the mean."""
+    img = np.ones((16, 16, 256), np.int32)
+    img[8:] = _dense_block_image((8, 16, 256))
+    return img
+
+
+def _frames():
+    """Three series frames: an ordinary one, the dense block, an ordinary
+    one."""
+    return [np.asarray(voronoi_stack((8, 16, 256), c, seed=s)) for c, s in ((12, 3), (9, 4))]
+
+
+@pytest.mark.parametrize("path", ["resident", "streamed", "series", "sharded"])
+def test_one_dense_block_under_auto_equals_jax_chunked(path):
+    """Each ``auto`` entry point answers a stack with one block past every
+    dictionary: the table equals the JAX package's ``analyze_stack_chunked``
+    field by field, the dense part is swept by the flat engine only, and
+    each route is one warning and one counted reroute."""
+    engine.reroutes = 0
+    with timing.collect() as t:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if path == "resident":
+                img = _dense_block_image((8, 16, 256))
+                got = [engine.analyze(img, background=1, device="cpu")]
+                imgs = [img]
+            elif path == "streamed":
+                img = _dense_block_stack_2x()
+                got = [streaming.analyze_streamed(img, background=1, slab_z=8, device="cpu")]
+                imgs = [img]
+            elif path == "series":
+                a, b = _frames()
+                imgs = [a, _dense_block_image((8, 16, 256)), b]
+                got = P.analyze_series(imgs, background=1, devices=["cpu"])
+            else:
+                img = _dense_block_stack_2x()
+                st = LabeledStack.from_array(img, background=1, device="cpu")
+                got = [analyze_sharded(st, make_mesh(2, device="cpu"))]
+                imgs = [img]
+    assert engine.reroutes == len(caught) == 1
+    assert "more than 4,096 dictionary labels" in str(caught[0].message)
+    names = [s.name for s in t.stages]
+    # the streamed stack's first slab and the series' ordinary frames are
+    # swept by blocks, once each
+    assert names.count("device sweep (block)") == {"streamed": 1, "series": 2}.get(path, 0)
+    for img, table in zip(imgs, got):
+        ref = jax_engine.analyze_stack_chunked(JaxStack.from_array(img, background=1))
+        assert_tables_equal(ref, table)

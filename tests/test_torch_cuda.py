@@ -86,16 +86,25 @@ def test_engine_cuda_equals_cpu(dev):
 
 
 def test_engine_cuda_beyond_uint16_labels(dev):
-    """65,536 labels (int32 stack) through the kernel, with the dictionary
-    retry (82 labels per block: L 32 → 64 → 128), equal to the plain engine."""
+    """65,536 labels (int32 stack) through the kernel: 82 labels per block,
+    so the named engine's dictionary retries go L 32 → 64 → 128, and
+    ``auto`` counts them first and sweeps once at 128. Equal to the plain
+    engine."""
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
 
     img = grid_stack((256, 256, 512), (8, 8, 8))
     st = LabeledStack.from_array(img, background=None, device=dev)
     assert st.n_labels == 65536 and st.dense.dtype == torch.int32
+    key = (st.shape, st.n_labels, (8, 16, 128), 32)
+    engine._GOOD_L.pop(key, None)
     before = block_sweep.launches
+    engine.analyze_stack(st, engine="cuda")
+    assert block_sweep.launches - before == 3 and engine._GOOD_L[key] == 128
+    engine._GOOD_L.pop(key)
+    before, counts = block_sweep.launches, bs.block_label_counts.launches
     gpu = engine.analyze_stack(st)
-    assert block_sweep.launches - before == 3
+    assert block_sweep.launches - before == 1 and engine._GOOD_L[key] == 128
+    assert bs.block_label_counts.launches - counts == 1
     plain = engine.analyze_stack(st, engine="torch")
     for f in ("count", "s1", "s2", "cmin", "cmax", "pair_lo", "pair_hi",
               "wall_face_counts", "margin"):
@@ -347,14 +356,16 @@ def test_sharded_four_slabs_on_one_card(dev, shape, ncells):
 
 
 def test_sharded_grid_past_uint16_on_one_card(dev):
-    """65,536 labels (int32); every slab reruns its dictionary to L = 128."""
+    """65,536 labels (int32); every slab is counted first and swept once,
+    at L = 128."""
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
     from tissue_analysis_tpu_torch.parallel import Mesh
 
     img = grid_stack((256, 256, 512), (8, 8, 8))
-    engine._GOOD_L.pop(((64, 256, 512), 65536, (8, 16, 128), 32), None)
+    key = ((64, 256, 512), 65536, (8, 16, 128), 32)
+    engine._GOOD_L.pop(key, None)
     launches = _sharded_equals_resident(img, Mesh((torch.device("cuda:0"),) * 4), None)
-    assert launches == 4 * 3
+    assert launches == 4 and engine._GOOD_L[key] == 128
 
 
 def test_sharded_across_cards(dev):
@@ -457,12 +468,12 @@ def test_flat_moments_equal_the_kernel_engines_on_the_card(dev):
 def test_dense_grid_route_on_the_card(dev, monkeypatch):
     """4096 labels a block (cells of 2x2x1) at a size that takes seconds:
     past the kernel's dictionary bound, so an explicit engine raises, and
-    ``auto`` knows from the sizes alone: it launches no kernel and reroutes
-    once to the flat engine. 2048 a block (cells of 2x2x2) are inside the
-    bound by that count while a block's dictionary holds 2848 with its
-    far-face neighbours: ``auto`` sweeps and raises as ``cuda`` does. A
-    face buffer the card cannot hold raises under ``auto`` too: nothing
-    reroutes after a launch."""
+    ``auto`` knows from the sizes alone: it launches neither kernel and
+    reroutes once to the flat engine. 2048 a block (cells of 2x2x2) are
+    inside the bound by that mean while a block's dictionary holds 2848
+    with its far-face neighbours: ``cuda`` sweeps and raises, ``auto``
+    counts and reroutes with no sweep. A face buffer the card cannot hold
+    raises under ``auto`` too: nothing reroutes after a launch."""
     from tissue_analysis_tpu_torch.core.synthetic import grid_stack
 
     shape = (32, 64, 256)
@@ -473,25 +484,36 @@ def test_dense_grid_route_on_the_card(dev, monkeypatch):
     with pytest.raises(RuntimeError, match='engine="chunked"'):
         engine.analyze_stack(st, engine="cuda")
     before, engine.reroutes = block_sweep.launches, 0
+    counts = bs.block_label_counts.launches
     with pytest.warns(UserWarning, match='holds 4096 labels or more.*engine="chunked"'):
         got = engine.analyze_stack(st)
     assert engine.reroutes == 1 and block_sweep.launches == before
+    assert bs.block_label_counts.launches == counts
     _assert_tables_equal(engine.analyze_stack(st, engine="chunked"), got)
     assert got.n_labels == n and np.all(got.count == 4)
     assert got.n_pairs == 15 * 32 * 256 + 16 * 31 * 256 + 16 * 32 * 255
     faces = got.wall_face_counts
     assert np.all((faces > 0).sum(axis=1) == 1) and set(faces.max(axis=1)) == {2, 4}
 
+    # 2048 a block (cells of 2x2x2) are inside the bound by the mean while a
+    # block's dictionary holds 2848 with its far-face neighbours: the named
+    # engine sweeps and raises, "auto" counts and reroutes with no sweep
     st2 = LabeledStack.from_array(grid_stack(shape, (2, 2, 2)), background=None, device=dev)
     assert st2.n_labels == 32 * 2048
-    for name in ("cuda", "auto"):
-        with pytest.raises(RuntimeError, match='largest this engine takes.*engine="chunked"'):
-            engine.analyze_stack(st2, engine=name)
-    assert engine.reroutes == 1
-    assert np.all(engine.analyze_stack(st2, engine="chunked").count == 8)
+    with pytest.raises(RuntimeError, match='largest this engine takes.*engine="chunked"'):
+        engine.analyze_stack(st2, engine="cuda")
+    before, counts = block_sweep.launches, bs.block_label_counts.launches
+    with pytest.warns(UserWarning, match="more than .* dictionary labels.*engine=\"chunked\""):
+        got2 = engine.analyze_stack(st2)
+    assert engine.reroutes == 2 and block_sweep.launches == before
+    assert bs.block_label_counts.launches - counts == 1
+    assert np.all(got2.count == 8)
 
-    # 512 labels a block: inside the capacity, so "auto" is the kernel engine
+    # 784 dictionary labels a block (cells of 2x4x4): "auto" sweeps once at
+    # L = 1024; a face buffer the card cannot hold then raises under "auto"
+    # too: nothing reroutes after a launch
     st4 = LabeledStack.from_array(grid_stack(shape, (2, 4, 4)), background=None, device=dev)
+    assert int(bs.block_label_counts(st4.dense, st4.n_labels, (8, 16, 128), 4096).max()) == 784
     engine._GOOD_L.clear()
     real = bs._faces_buffer
 
@@ -501,7 +523,70 @@ def test_dense_grid_route_on_the_card(dev, monkeypatch):
         return real(B, L, block, d)
 
     monkeypatch.setattr(bs, "_faces_buffer", small_device)
-    for name in ("cuda", "auto"):
-        with pytest.raises(ValueError, match="L=256 need"):
+    for name, L in (("cuda", 256), ("auto", 1024)):
+        with pytest.raises(ValueError, match=f"L={L} need"):
             engine.analyze_stack(st4, engine=name)
-    assert engine.reroutes == 1
+    assert engine.reroutes == 2
+
+
+# ------------------------------------------------------------ the count kernel
+def _count_cases():
+    """(dense, n, block) at small shapes: the sweep's adversarial cases,
+    Voronoi stacks in both label widths and a 2D lift, ragged edges."""
+    out = {name: (lambda make=make: make()[:3]) for name, make in SWEEP_CASES.items()}
+    for shape, ncells, dtype, block in (
+        ((64, 64, 64), 150, torch.uint16, (8, 16, 128)),
+        ((37, 50, 131), 300, torch.int32, (8, 16, 128)),
+        ((1, 300, 340), 400, torch.uint16, (1, 128, 128)),
+        ((20, 36, 70), 80, torch.int32, (4, 8, 32)),
+    ):
+        def make(shape=shape, ncells=ncells, dtype=dtype, block=block):
+            st = _stack(shape, ncells, 3, "cpu")
+            return st.dense.to(dtype).numpy(), st.n_labels, block
+        out[f"voronoi-{'x'.join(map(str, shape))}-{dtype}"] = make
+    return out
+
+
+COUNT_CASES = _count_cases()
+
+
+@pytest.mark.parametrize("name", list(COUNT_CASES))
+def test_count_kernel_equals_plain_version(dev, name):
+    dense, n, block = COUNT_CASES[name]()
+    t = torch.from_numpy(dense).to(dev)
+    for cap in (4, 32, max_dict_size()):
+        before = bs.block_label_counts.launches
+        k = bs.block_label_counts(t, n, block, cap)
+        torch.cuda.synchronize()
+        assert bs.block_label_counts.launches == before + 1
+        assert torch.equal(k, bs.block_label_counts_reference(t, n, block, cap)), cap
+
+
+def test_count_kernel_saturates_past_its_cap(dev):
+    """16,384 distinct labels in one block, beside an empty block: the
+    dense block's count stops at cap + 1 (it stops inserting past cap)."""
+    img = np.zeros((8, 16, 256), np.int32)
+    img[:, :, :128] = 1 + np.arange(8 * 16 * 128).reshape(8, 16, 128)
+    t = torch.from_numpy(img).to(dev)
+    for cap in (1, 100, max_dict_size()):
+        k = bs.block_label_counts(t, 16385, (8, 16, 128), cap)
+        assert k.tolist() == [cap + 1, 1]
+        assert torch.equal(k, bs.block_label_counts_reference(t, 16385, (8, 16, 128), cap))
+    with pytest.raises(ValueError, match="shared-memory"):
+        bs.block_label_counts(t, 16385, (8, 16, 128), 1 << 20)
+
+
+def test_dense_block_routes_with_no_sweep_on_the_card(dev):
+    """One block of 5,462 labels beside three empty ones (1,366 a block by
+    the mean, inside the kernel's bound): ``auto`` counts on the card,
+    reroutes before any sweep, and equals the flat engine."""
+    img = np.ones((8, 16, 512), np.int32)
+    img[:, :, :128] = 2 + np.arange(8 * 16 * 128).reshape(8, 16, 128) // 3
+    st = LabeledStack.from_array(img, background=1, device=dev)
+    engine.reroutes = 0
+    before, counts = block_sweep.launches, bs.block_label_counts.launches
+    with pytest.warns(UserWarning, match="more than .* dictionary labels"):
+        got = engine.analyze_stack(st)
+    assert (engine.reroutes, block_sweep.launches - before,
+            bs.block_label_counts.launches - counts) == (1, 0, 1)
+    _assert_tables_equal(engine.analyze_stack(st, engine="chunked"), got)

@@ -47,23 +47,36 @@ def img():
 
 @pytest.fixture(scope="module")
 def converged(img):
-    """(stack, table, number of sweeps) of the port's plain engine from L = 32."""
+    """(stack, table, number of sweeps) of the port's plain engine from L = 32,
+    by name: it reruns with L doubled."""
     st = LabeledStack.from_array(img, background=None, device="cpu")
     engine._GOOD_L.pop((st.shape, st.n_labels, bs.DEFAULT_BLOCK, 32), None)
     with timing.collect() as t:
-        table = engine.analyze_stack(st)
+        table = engine.analyze_stack(st, "torch")
     sweeps = sum(s.name == "device sweep (block)" for s in t.stages)
     return st, table, sweeps
 
 
-def test_converges_at_L512_in_five_sweeps(converged):
-    st, _, sweeps = converged
+def test_converges_at_L512_in_five_sweeps(converged, monkeypatch):
+    st, table, sweeps = converged
+    key = (st.shape, N, bs.DEFAULT_BLOCK, 32)
     assert sweeps == 5  # 32 → 64 → 128 → 256 → 512
-    assert engine._GOOD_L[(st.shape, N, bs.DEFAULT_BLOCK, 32)] == 512
+    assert engine._GOOD_L[key] == 512
     # the widest block holds 256 cells + 200 past its far faces
     out = bs.block_sweep_reference(st.dense, N, bs.DEFAULT_BLOCK, 512)
     assert not bool(out.ovf.any())
     assert int((out.ids < bs.IMAX).sum(dim=1).max()) == 456
+    assert int(bs.block_label_counts(st.dense, N, bs.DEFAULT_BLOCK, 4096).max()) == 456
+    # "auto" counts first and sweeps once, at the L the reruns reached
+    engine._GOOD_L.pop(key)
+    calls = []
+    real = engine.block_sweep_reference
+    monkeypatch.setattr(engine, "block_sweep_reference",
+                        lambda *a: calls.append(a[3]) or real(*a))
+    got = engine.analyze_stack(st)
+    assert calls == [512] and engine._GOOD_L[key] == 512
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(table, f), getattr(got, f), err_msg=f)
 
 
 def test_equals_closed_form(converged):

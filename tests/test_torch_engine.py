@@ -96,21 +96,33 @@ def test_stack_from_reference_fields(tables, name):
 
 
 def test_dict_overflow_retry_runs_and_converges(tables):
+    """The named block engine reruns with L doubled; ``auto`` counts the
+    blocks first and sweeps once, at the L the reruns converge to."""
     _, ps, port = tables("voronoi")
     key = (ps.shape, ps.n_labels, DEFAULT_BLOCK, 4)
     engine._GOOD_L.pop(key, None)
     with timing.collect() as t:
-        small = engine.analyze_stack(ps, L=4)
+        small = engine.analyze_stack(ps, "torch", L=4)
     sweeps = [s for s in t.stages if s.name == "device sweep (block)"]
     # the retry really ran: several sweeps, converged L above the request
     assert len(sweeps) >= 2
-    assert engine._GOOD_L[key] == 4 * 2 ** (len(sweeps) - 1)
+    converged = engine._GOOD_L[key]
+    assert converged == 4 * 2 ** (len(sweeps) - 1)
     assert_tables_equal(port, small)
     # a repeat call starts from the converged size: one sweep
+    for name in ("torch", "auto"):
+        with timing.collect() as t:
+            again = engine.analyze_stack(ps, name, L=4)
+        assert sum(s.name == "device sweep (block)" for s in t.stages) == 1
+        assert_tables_equal(port, again)
+    engine._GOOD_L.pop(key)
     with timing.collect() as t:
-        again = engine.analyze_stack(ps, L=4)
+        counted = engine.analyze_stack(ps, L=4)
+    assert [s.name for s in t.stages][:2] == ["device count (block labels)",
+                                              "device sweep (block)"]
     assert sum(s.name == "device sweep (block)" for s in t.stages) == 1
-    assert_tables_equal(port, again)
+    assert engine._GOOD_L[key] == converged
+    assert_tables_equal(port, counted)
 
 
 def test_engine_selection_never_falls_back(tables, monkeypatch):

@@ -114,8 +114,10 @@ def test_mesh_sizes_equal_resident(k, slabs):
 
 def test_only_one_slab_overflows():
     """Four slabs of one 8×16×128 block each; only the third holds more
-    than 32 dictionary labels (64 cells of 8×4×8). It alone reruns, at
-    L = 64; the next call starts every slab of that shape there."""
+    than 32 dictionary labels (64 cells of 8×4×8). Under the named block
+    engine it alone reruns, at L = 64; the next call starts every slab of
+    that shape there. Under ``auto`` every slab is counted first and swept
+    once: the third at 64, the others at 32."""
     img = np.full((32, 16, 128), 1, np.int32)
     img[:, :, 64:] = 2
     cells = np.arange(64).reshape(1, 4, 16).repeat(8, 0).repeat(4, 1).repeat(8, 2)
@@ -125,14 +127,24 @@ def test_only_one_slab_overflows():
     key = ((8, 16, 128), st.n_labels, DEFAULT_BLOCK, 32)
     engine._GOOD_L.pop(key, None)
     with timing.collect() as t:
-        got = analyze_sharded(st, mesh)
+        got = analyze_sharded(st, mesh, "torch")
     assert sum(s.name == "device sweep (block)" for s in t.stages) == 4 + 1
     assert engine._GOOD_L[key] == 64
     assert_tables_equal(engine.analyze_stack(st), got)
     with timing.collect() as t:
-        again = analyze_sharded(st, mesh)
+        again = analyze_sharded(st, mesh, "torch")
     assert sum(s.name == "device sweep (block)" for s in t.stages) == 4
     assert_tables_equal(got, again)
+    engine._GOOD_L.pop(key)
+    calls = []
+    real = engine.block_sweep_reference
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine, "block_sweep_reference", lambda *a: calls.append(a[3]) or real(*a))
+        with timing.collect() as t:
+            counted = analyze_sharded(st, mesh)
+    assert calls == [32, 32, 64, 32] and engine._GOOD_L[key] == 64
+    assert sum(s.name == "device count (block labels)" for s in t.stages) == 4
+    assert_tables_equal(got, counted)
 
 
 def test_label_space_past_uint16():

@@ -12,7 +12,8 @@ A segmented 2D or 3D image is relabeled on the host
 (:func:`graph_from_table`). :func:`analyze_raw` skips the host relabel.
 A stack with more labels in a block than the block sweep's dictionary takes
 goes through the flat engine (``engine="chunked"``,
-:func:`analyze_stack_chunked`), which ``engine="auto"`` reroutes to.
+:func:`analyze_stack_chunked`), which ``engine="auto"`` reroutes to before
+any sweep, after counting every block's labels on the device.
 The reference-compatible facade :func:`SpatialImageAnalysis` serves every
 per-cell query from that one table. Time series go through
 :func:`analyze_series` and :func:`temporal_graph_from_images` (lineage

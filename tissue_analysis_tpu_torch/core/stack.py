@@ -76,12 +76,17 @@ class LabeledStack:
     background_segment:
         segment id of the background label, or ``None`` if the background
         label does not occur in the image.
+    all_present:
+        every segment id has voxels (a stack relabeled from an image by
+        :meth:`from_array`); False where that is not known, as for a raw id
+        range or ids given to :meth:`from_numpy`.
     """
 
     dense: torch.Tensor
     ids: np.ndarray
     voxelsize: Tuple[float, ...]
     background_segment: Optional[int]
+    all_present: bool = False
 
     @property
     def n_labels(self) -> int:
@@ -190,7 +195,8 @@ class LabeledStack:
                         ids[0], ids[pos] = ids[pos], ids[0]
                     background_segment = 0
 
-        return cls.from_numpy(dense, ids, voxelsize, background_segment, dev)
+        stack = cls.from_numpy(dense, ids, voxelsize, background_segment, dev)
+        return dataclasses.replace(stack, all_present=True)
 
     def segment_of(self, label: int) -> Optional[int]:
         """Segment id of an original label, or None if absent."""

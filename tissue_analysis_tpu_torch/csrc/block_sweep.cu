@@ -9,6 +9,9 @@
 // The TPU's workarounds are not carried over: bf16 one-hot MXU dots, 8-bit
 // value splits, hi/lo split columns, the hashed min/max dictionary chain,
 // extras plane packing, and v1's three globally shifted neighbour copies.
+// A second kernel, block_label_count_kernel, runs the sweep's dictionary
+// step alone and writes each block's dictionary size, so that a caller
+// picks the sweep's L (or no block sweep at all) before the sweep.
 //
 // Contract, per voxel block of shape (bz, by, bx) in z-major block order
 // (every access is masked by coordinate, so no padded copy of the stack
@@ -527,6 +530,90 @@ block_sweep_kernel(const T* __restrict__ dense, Params p,
   }
 }
 
+// The dictionary pass of block_sweep_kernel alone (no TPU counterpart: it
+// stands where the reference's engine catches a failed sweep and falls back
+// to another engine). count[b] is the number of distinct labels < n among
+// block b's voxels and the +1 z/y/x neighbours just past its far faces
+// (step 1 of the contract above), saturated at cap + 1, so count[b] > L
+// exactly where a sweep at L sets ovf[b], for every L <= cap. The hash has
+// at least 2 (cap + 1) slots; a block stops inserting once its count passes
+// cap (a block of 16,384 distinct labels would otherwise probe a full table
+// on every insert), so the table can fill only past cap.
+// What bounds it: the bytes of the stack and of its far-face planes, read
+// once (x ~1.2 at the default block), and 4 B a block written. It reads
+// through L1 as the sweep's first step does; no tensor-core work.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+block_label_count_kernel(const T* __restrict__ dense, Params p, int cap,
+                         int* __restrict__ count_out) {
+  extern __shared__ int smem[];
+  const int n = p.n;
+  const int H = 1 << p.hbits;
+  int* hkeys = smem;       // [H]
+  int* misc = hkeys + H;   // ndistinct, full
+  const volatile int* nd = misc;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int chunk = p.chunk;
+  const long long sz = static_cast<long long>(p.Y) * p.X;
+
+  for (long long b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const Geo g = block_geo(p, b);
+    const T* base = dense + g.oz * sz + static_cast<long long>(g.oy) * p.X + g.ox;
+    auto row = [&](int lz, int ly) {
+      return base + lz * sz + static_cast<long long>(ly) * p.X;
+    };
+    const int npass = (g.ex + 32 * chunk - 1) / (32 * chunk);
+    for (int i = tid; i < H; i += kThreads) hkeys[i] = kEmpty;
+    if (tid == 0) {
+      misc[0] = 0;
+      misc[1] = 0;
+    }
+    __syncthreads();
+
+    // the rows and the +x column of block_sweep_kernel's step 1; a warp
+    // stops (all lanes at once) when the count has passed cap
+    {
+      int last = kEmpty;
+      bool over = false;
+      for (int ly = warp; ly < g.ty && !over; ly += kWarps) {
+        for (int pass = 0; pass < npass && !over; ++pass) {
+          const int x0 = (pass * 32 + lane) * chunk;
+          for (int lz = 0; lz < g.tz; ++lz) {
+            if (lz == p.bz && ly == p.by) continue;  // never a neighbour
+            over = __any_sync(kFull, *nd > cap);
+            if (over) break;
+            int v[4];
+            load_chunk(row(lz, ly), x0, chunk, g.ex, v);
+            const int tail =
+                chunk == 4 ? v[3] : chunk == 3 ? v[2] : chunk == 2 ? v[1] : v[0];
+            const int left = __shfl_up_sync(kFull, tail, 1);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int prev =
+                  c == 0 ? (lane == 0 ? kEmpty : left) : v[c > 0 ? c - 1 : 0];
+              if (live(v[c], n) && v[c] != prev && v[c] != last)
+                dict_insert(hkeys, v[c], p.hbits, &misc[0], &misc[1]);
+              if (live(v[c], n)) last = v[c];
+            }
+          }
+        }
+        if (!over && lane == 0 && g.tx > g.ex && ly < g.ey) {
+          for (int lz = 0; lz < g.ez && *nd <= cap; ++lz) {
+            const int v = __ldg(row(lz, ly) + g.ex);
+            if (live(v, n)) dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (tid == 0) count_out[b] = (misc[0] > cap || misc[1]) ? cap + 1 : misc[0];
+    __syncthreads();
+  }
+}
+
 int hash_bits(int L) {
   int bits = 6;  // at least 64 entries, and at least 2L (load <= 1/2)
   while ((1 << bits) < 2 * L) ++bits;
@@ -539,19 +626,33 @@ long long smem_bytes(int L) {
   return (2 * H + 16LL * L + 2) * static_cast<long long>(sizeof(int));
 }
 
+// bytes of the count kernel's shared state: hash of >= 2 (cap + 1) slots,
+// two counters
+long long count_smem_bytes(int cap) {
+  return ((1LL << hash_bits(cap + 1)) + 2) * static_cast<long long>(sizeof(int));
+}
+
 // ---------------------------------------------------------------- host side
-const void* kernel_of(int is_int32) {
+enum Kind { kSweep = 0, kCount = 1 };
+
+const void* kernel_of(int kind, int is_int32) {
+  if (kind == kCount) {
+    return is_int32
+               ? reinterpret_cast<const void*>(&block_label_count_kernel<int>)
+               : reinterpret_cast<const void*>(&block_label_count_kernel<unsigned short>);
+  }
   return is_int32
              ? reinterpret_cast<const void*>(&block_sweep_kernel<int>)
              : reinterpret_cast<const void*>(&block_sweep_kernel<unsigned short>);
 }
 
-// per instantiation, a bit per device whose attribute is set
-std::atomic<unsigned long long> g_attr_set[2];
+// per kernel and instantiation (2 * kind + is_int32), a bit per device
+// whose attribute is set
+std::atomic<unsigned long long> g_attr_set[4];
 std::mutex g_cache_mu;
 int g_sms[kMaxDevices];
 struct OccEntry {
-  int dev, is_int32, smem, ctas;
+  int dev, fn, smem, ctas;
 };
 OccEntry g_occ[64];
 int g_nocc = 0;
@@ -559,13 +660,14 @@ int g_nocc = 0;
 // The SMs of device dev and the CTAs an SM holds at smem bytes. Sets the
 // dynamic shared-memory ceiling of the instantiation once per device; both
 // answers are cached.
-cudaError_t occupancy(int dev, int is_int32, int smem, int* ctas, int* sms) {
+cudaError_t occupancy(int dev, int kind, int is_int32, int smem, int* ctas, int* sms) {
+  const int fn = 2 * kind + is_int32;
   const unsigned long long bit = 1ULL << dev;
-  if (!(g_attr_set[is_int32].load(std::memory_order_acquire) & bit)) {
+  if (!(g_attr_set[fn].load(std::memory_order_acquire) & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel_of(is_int32), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        kernel_of(kind, is_int32), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
-    g_attr_set[is_int32].fetch_or(bit, std::memory_order_release);
+    g_attr_set[fn].fetch_or(bit, std::memory_order_release);
   }
   std::lock_guard<std::mutex> lock(g_cache_mu);
   if (g_sms[dev] == 0) {
@@ -577,18 +679,55 @@ cudaError_t occupancy(int dev, int is_int32, int smem, int* ctas, int* sms) {
   const int cached = g_nocc < 64 ? g_nocc : 64;
   for (int i = 0; i < cached; ++i) {
     const OccEntry& e = g_occ[i];
-    if (e.dev == dev && e.is_int32 == is_int32 && e.smem == smem) {
+    if (e.dev == dev && e.fn == fn && e.smem == smem) {
       *ctas = e.ctas;
       return cudaSuccess;
     }
   }
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, kernel_of(is_int32), kThreads, static_cast<size_t>(smem));
+      ctas, kernel_of(kind, is_int32), kThreads, static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
   if (*ctas < 1) return cudaErrorInvalidConfiguration;
-  g_occ[g_nocc % 64] = OccEntry{dev, is_int32, smem, *ctas};
+  g_occ[g_nocc % 64] = OccEntry{dev, fn, smem, *ctas};
   ++g_nocc;
   return cudaSuccess;
+}
+
+Params make_params(int Z, int Y, int X, int bz, int by, int bx, int L, int n,
+                   int hbits) {
+  Params p;
+  p.Z = Z;
+  p.Y = Y;
+  p.X = X;
+  p.bz = bz;
+  p.by = by;
+  p.bx = bx;
+  const int gz = (Z + bz - 1) / bz;
+  p.gy = (Y + by - 1) / by;
+  p.gx = (X + bx - 1) / bx;
+  p.B = static_cast<long long>(gz) * p.gy * p.gx;
+  p.L = L;
+  p.n = n;
+  p.hbits = hbits;
+  p.chunk = (bx + 31) / 32 < 4 ? (bx + 31) / 32 : 4;
+  return p;
+}
+
+// Persistent CTAs of kernel (kind, is_int32): as many as fit an SM at smem
+// bytes times the SMs, no more than the blocks. Returns cudaGetLastError().
+int launch(int kind, int is_int32, long long B, int smem, void** args, void* stream) {
+  int dev = 0, ctas = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  err = occupancy(dev, kind, is_int32, smem, &ctas, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long want = static_cast<long long>(ctas) * sms;
+  const unsigned grid = static_cast<unsigned>(B < want ? B : want);
+  err = cudaLaunchKernel(kernel_of(kind, is_int32), dim3(grid), dim3(kThreads), args,
+                         static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -607,37 +746,27 @@ long long ta_block_sweep_smem_bytes(int L) { return smem_bytes(L); }
 int ta_block_sweep(const void* dense, int is_int32, int Z, int Y, int X,
                    int bz, int by, int bx, int L, int n, void* ids, void* mom,
                    void* gmin, void* gmax, void* faces, void* ovf, void* stream) {
-  Params p;
-  p.Z = Z;
-  p.Y = Y;
-  p.X = X;
-  p.bz = bz;
-  p.by = by;
-  p.bx = bx;
-  const int gz = (Z + bz - 1) / bz;
-  p.gy = (Y + by - 1) / by;
-  p.gx = (X + bx - 1) / bx;
-  p.B = static_cast<long long>(gz) * p.gy * p.gx;
-  p.L = L;
-  p.n = n;
-  p.hbits = hash_bits(L);
-  p.chunk = (bx + 31) / 32 < 4 ? (bx + 31) / 32 : 4;
+  Params p = make_params(Z, Y, X, bz, by, bx, L, n, hash_bits(L));
   if (p.B == 0) return 0;
-  int dev = 0, ctas = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  const int smem = static_cast<int>(smem_bytes(L));
-  err = occupancy(dev, is_int32, smem, &ctas, &sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long want = static_cast<long long>(ctas) * sms;
-  const unsigned grid = static_cast<unsigned>(p.B < want ? p.B : want);
   void* args[] = {static_cast<void*>(&dense), &p, &ids, &mom, &gmin, &gmax,
                   &faces, &ovf};
-  err = cudaLaunchKernel(kernel_of(is_int32), dim3(grid), dim3(kThreads), args,
-                         static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch(kSweep, is_int32, p.B, static_cast<int>(smem_bytes(L)), args, stream);
+}
+
+// Dynamic shared memory (bytes) of one block's state in the count kernel.
+long long ta_block_label_count_smem_bytes(int cap) { return count_smem_bytes(cap); }
+
+// dense as for ta_block_sweep; count int32 [B] (allocated by the caller) gets
+// each block's dictionary size, saturated at cap + 1. Launches on `stream`,
+// does not synchronise; returns cudaGetLastError().
+int ta_block_label_count(const void* dense, int is_int32, int Z, int Y, int X,
+                         int bz, int by, int bx, int cap, int n, void* count,
+                         void* stream) {
+  Params p = make_params(Z, Y, X, bz, by, bx, cap, n, hash_bits(cap + 1));
+  if (p.B == 0) return 0;
+  void* args[] = {static_cast<void*>(&dense), &p, &cap, &count};
+  return launch(kCount, is_int32, p.B, static_cast<int>(count_smem_bytes(cap)), args,
+                stream);
 }
 
 }  // extern "C"

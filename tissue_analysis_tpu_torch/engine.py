@@ -17,15 +17,21 @@ result on the host. Three engines give bit-identical tables:
 
 ``engine="auto"`` picks ``"cuda"`` for a CUDA stack and ``"torch"`` for a
 CPU stack. The block engines keep a dictionary of L labels a block and a
-dense ``[B, L, 3L]`` face buffer. Before any launch ``"auto"`` holds the
-stack's labels a block (``n_labels`` over its B blocks: some block holds at
-least that many) against the largest L the block engine takes for B blocks
-on that device (:func:`block_capacity`); a stack past it cannot converge, so
-``"auto"`` warns, adds one to :data:`reroutes` and sweeps it with the flat
-engine instead. That test reads shapes and sizes only. Nothing reroutes
-after a launch: a block that overflows the largest L, a face buffer the
-device cannot hold, or a kernel that fails to build or launch raises under
-every engine name, and the first two name ``engine="chunked"``.
+dense ``[B, L, 3L]`` face buffer. Before any launch ``"auto"`` decides in
+two steps. First, from sizes alone, it holds the stack's labels a block
+(``n_labels`` over its B blocks: some block holds at least that many)
+against the largest L the block engine takes for B blocks on that device
+(:func:`block_capacity`). Then it counts every block's dictionary labels on
+the device (:func:`fit_dictionary`: one pass of a hand-written kernel on a
+card, one readback) and sweeps once at the smallest L of the doubling ladder
+that holds the largest count. A stack past the first test, a block past the
+engine's bound, or on a card outputs at the counted L past the memory the
+device can give: ``"auto"`` warns, adds one to :data:`reroutes` and sweeps
+the stack with the flat engine instead. Nothing reroutes after a launch:
+under ``"cuda"`` and ``"torch"`` a block that overflows makes the sweep
+rerun with L doubled, and one that overflows the largest L, a face buffer
+the device cannot hold, or a kernel that fails to build or launch raises
+under every engine name, and the first two name ``engine="chunked"``.
 
 :func:`dispatch_stack` launches a sweep without waiting for the device and
 :func:`collect_stack` finishes it, so a caller can relabel the next frame or
@@ -57,6 +63,7 @@ from tissue_analysis_tpu_torch.ops import combine, segred, stencil
 from tissue_analysis_tpu_torch.ops.block_sweep import (
     DEFAULT_BLOCK,
     PLAIN_MAX_DICT,
+    block_label_counts,
     block_sweep,
     block_sweep_reference,
     max_dict_size,
@@ -83,6 +90,8 @@ __all__ = [
     "block_capacity",
     "block_engine",
     "past_capacity",
+    "dispatch_counted",
+    "fit_dictionary",
     "ENGINES",
 ]
 
@@ -99,8 +108,8 @@ _ENGINE_NAMES = {
 }
 
 #: stacks that ``engine="auto"`` gave to the flat engine before any launch,
-#: because their labels a block are past :func:`block_capacity` (a count of
-#: reroutes, as ``block_sweep.launches`` is one of kernel launches)
+#: because no block sweep could take them (a count of reroutes, as
+#: ``block_sweep.launches`` is one of kernel launches)
 reroutes = 0
 
 #: block of the lifted [1, Y, X] sweep of a 2D image (as the TPU engine's)
@@ -132,17 +141,29 @@ def block_engine(engine: str, device) -> str:
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
+def dict_bound(engine: str) -> int:
+    """Largest dictionary size L block engine ``engine`` (``"cuda"`` or
+    ``"torch"``) takes."""
+    return max_dict_size() if engine == "cuda" else PLAIN_MAX_DICT
+
+
 def block_capacity(B: int, device, engine: str) -> int:
-    """Largest dictionary size L that block engine ``engine`` (``"cuda"`` or
-    ``"torch"``) takes for a sweep of ``B`` blocks on ``device``: the
-    engine's bound, and on a card no more than the L whose ``[B, L, 3L]``
-    int32 face counts equal the card's whole memory."""
-    cap = max_dict_size() if engine == "cuda" else PLAIN_MAX_DICT
+    """Largest dictionary size L that block engine ``engine`` takes for a
+    sweep of ``B`` blocks on ``device``: the engine's bound, and on a card
+    no more than the L whose ``[B, L, 3L]`` int32 face counts equal the
+    card's whole memory."""
+    cap = dict_bound(engine)
     device = torch.device(device)
     if device.type == "cuda":
         total = torch.cuda.get_device_properties(device).total_memory
         cap = min(cap, math.isqrt(total // (12 * B)))
     return cap
+
+
+def n_blocks(shape, block) -> int:
+    """Blocks of shape ``block`` over an image of ``shape`` (ragged far
+    edges included)."""
+    return int(np.prod([-(-s // b) for s, b in zip(shape, block)]))
 
 
 def past_capacity(n: int, shape, device, engine: str, part=None) -> Optional[str]:
@@ -152,10 +173,7 @@ def past_capacity(n: int, shape, device, engine: str, part=None) -> Optional[str
     ``n`` over the image's blocks labels, and that is held against
     :func:`block_capacity` for the blocks of one sweep."""
     block = BLOCK_2D[1:] if len(shape) == 2 else DEFAULT_BLOCK
-    B, B_part = (
-        int(np.prod([-(-s // b) for s, b in zip(sh, block)]))
-        for sh in (shape, shape if part is None else part)
-    )
+    B, B_part = n_blocks(shape, block), n_blocks(shape if part is None else part, block)
     cap = block_capacity(B_part, device, engine)
     if n <= B * cap:
         return None
@@ -169,47 +187,144 @@ def past_capacity(n: int, shape, device, engine: str, part=None) -> Optional[str
     )
 
 
-def auto_engine(stack: LabeledStack, device, part=None) -> str:
-    """The engine ``"auto"`` stands for on ``device``: its block engine, or
-    ``"chunked"`` (with a warning and one more of :data:`reroutes`) where
-    :func:`past_capacity` says that no block sweep of ``stack`` can
-    converge. The label space alone decides for almost every stack; only one
-    past the capacity by that count has its labels with voxels counted (one
-    ``bincount`` pass), since a raw id range or a bucketed label space holds
-    segment ids that no voxel has."""
+def _reroute(why: str) -> None:
+    """Say why ``"auto"`` gives a stack to the flat engine, and count it."""
     global reroutes
-    name = block_engine("auto", device)
-    n = stack.n_labels
-    why = past_capacity(n, stack.shape, device, name, part)
-    if why is not None:
-        seen = torch.bincount(widened(stack.dense).reshape(-1), minlength=n)
-        why = past_capacity(int(seen.count_nonzero()), stack.shape, device, name, part)
-    if why is None:
-        return name
     warnings.warn(
         f'{why}; sweeping it with the flat engine instead (engine="chunked" '
         f"asks for that engine by name)",
         UserWarning, stacklevel=4,
     )
     reroutes += 1
+
+
+def auto_engine(stack: LabeledStack, device, part=None) -> str:
+    """The engine ``"auto"`` starts from on ``device``: its block engine, or
+    ``"chunked"`` (with a warning and one more of :data:`reroutes`) where
+    :func:`past_capacity` says from sizes alone that no block sweep of
+    ``stack`` can converge. That mean is evidence only where every label
+    has voxels (``stack.all_present``, a stack relabeled from an image); a
+    raw id range or a label space given by hand goes to the block engine,
+    and :func:`fit_dictionary`'s count decides."""
+    name = block_engine("auto", device)
+    if not stack.all_present:
+        return name
+    why = past_capacity(stack.n_labels, stack.shape, device, name, part)
+    if why is None:
+        return name
+    _reroute(why)
     return "chunked"
 
 
-def _pick_sweep(stack: LabeledStack, engine: str):
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-    on_cuda = stack.device.type == "cuda"
-    if engine == "auto":
-        engine = auto_engine(stack, stack.device)
-    if engine == "chunked":
-        return flat_sweep
+def sweep_bytes(B: int, L: int) -> int:
+    """Bytes of a block sweep's outputs for ``B`` blocks at dictionary size
+    ``L``: ids, mom, gmin, gmax, the ``[B, L, 3L]`` face counts and ovf."""
+    return B * (4 + L * (4 + 80 + 24 + 12 * L))
+
+
+def givable_bytes(device, want: int) -> Optional[int]:
+    """Bytes a new allocation of ``want`` bytes on ``device`` can have: on a
+    card the free memory ``cudaMemGetInfo`` reports, plus what PyTorch's
+    allocator holds unused where the free memory alone is short of
+    ``want`` (the allocator's statistics cost more host time than
+    ``cudaMemGetInfo``); None (no bound) elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free = torch.cuda.mem_get_info(device)[0]
+    if free >= want:
+        return free
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
+    """``"auto"``'s exact test of a block sweep ``d`` before its launch.
+
+    One count of every block's dictionary labels
+    (:func:`~tissue_analysis_tpu_torch.ops.block_sweep.block_label_counts`,
+    the kernel on a card, saturated past the engine's bound) and one
+    readback of its largest value m. ``d.L`` becomes the smallest
+    ``d.L · 2^k ≥ m`` up to the engine's bound: the size that
+    :func:`finish_stack`'s overflow reruns would converge to, so the sweep
+    runs once. Returns None, or why no block sweep can take the stack: a
+    block past the engine's bound, or on a card outputs at that L (with
+    ``held`` bytes that sweeps dispatched beside it will hold on the same
+    device) past :func:`givable_bytes`. A label space no larger than
+    ``d.L`` needs no count."""
+    stack, n = d.stack, d.n_sweep
+    if n <= d.L:
+        return None
+    name = "cuda" if d.sweep is block_sweep else "torch"
+    bound = dict_bound(name)
+    with timing.stage("device count (block labels)", int(np.prod(stack.shape)), stack.device):
+        counts = block_label_counts(stack.dense, n, d.block, bound)
+        m = int(counts.max())
+    where = (f"a {tuple(d.block)} block of this {tuple(d.image.shape)} image (one of "
+             f"{counts.numel()})")
+    if m > bound:
+        return (f"{where} holds more than {bound:,} dictionary labels, the largest "
+                f"dictionary L={bound} the {name!r} block engine takes")
+    L = d.L
+    while L < m:
+        L = min(2 * L, bound)
+    need = sweep_bytes(counts.numel(), L)
+    give = givable_bytes(stack.device, held + need)
+    if give is not None and held + need > give:
+        return (f"{where} holds {m:,} dictionary labels, so the {name!r} block "
+                f"engine sweeps at L={L}, and its outputs there ([B, L, 3L] face "
+                f"counts and the rest) need {need:,} bytes; {stack.device} can give "
+                f"{give - held:,}")
+    d.L = L
+    return None
+
+
+def _block_plan(stack: LabeledStack, engine: str, L: int = 32,
+                n_bucket: Optional[int] = None) -> "Dispatched":
+    """A sweep of ``stack`` by block engine ``engine``, not launched yet
+    (``out`` is None), from the converged dictionary size of its key."""
     if engine == "cuda":
-        if not on_cuda:
+        if stack.device.type != "cuda":
             raise ValueError(
                 f"engine 'cuda' needs a stack on a CUDA device, got {stack.device}"
             )
-        return block_sweep
-    return block_sweep_reference
+        sweep = block_sweep
+    else:
+        sweep = block_sweep_reference
+    image = stack
+    if stack.ndim == 2:
+        stack, block = _lift_2d(stack), BLOCK_2D
+    else:
+        block = DEFAULT_BLOCK
+    n = stack.n_labels
+    n_sweep = n if n_bucket is None else max(n, int(n_bucket))
+    key = (stack.shape, n_sweep, tuple(block), int(L))
+    return Dispatched(stack, image, sweep, block, key, _GOOD_L.get(key, int(L)), n_sweep, None)
+
+
+def _launch(d: "Dispatched") -> "Dispatched":
+    with timing.stage("device sweep (block)", int(np.prod(d.stack.shape)), d.stack.device):
+        d.out = d.sweep(d.stack.dense, d.n_sweep, d.block, d.L)
+    return d
+
+
+def _dispatch_flat(stack: LabeledStack, chunk: Optional[int] = None) -> "Dispatched":
+    return Dispatched(stack, stack, flat_sweep, None, None, 0, stack.n_labels,
+                      flat_sweep(stack, chunk))
+
+
+def dispatch_counted(stack: LabeledStack, L: int = 32, n_bucket: Optional[int] = None,
+                     chunk: Optional[int] = None) -> "Dispatched":
+    """``"auto"`` past its mean test: the block sweep of ``stack`` at the
+    L that :func:`fit_dictionary` counts, or, where it says no block sweep
+    can take the stack, the flat engine (a warning and one more of
+    :data:`reroutes`). A streamed slab comes here directly: the label count
+    of its whole image says nothing of its blocks."""
+    d = _block_plan(stack, block_engine("auto", stack.device), L, n_bucket)
+    why = fit_dictionary(d)
+    if why is not None:
+        _reroute(why)
+        return _dispatch_flat(stack, chunk)
+    return _launch(d)
 
 
 class Finished(NamedTuple):
@@ -258,20 +373,26 @@ class Dispatched:
     key: tuple
     L: int
     n_sweep: int
-    out: object  # the block sweep's SweepOut, or the flat engine's Finished
+    # the block sweep's SweepOut (None until launched), or the flat
+    # engine's Finished
+    out: object
 
 
 def analyze_stack(
     stack: LabeledStack, engine: str = "auto", L: int = 32,
-    n_bucket: Optional[int] = None,
+    n_bucket: Optional[int] = None, *, max_pairs: Optional[int] = None,
+    chunk: Optional[int] = None, block_config=None,
 ) -> FeatureTable:
     """Labeled stack → FeatureTable in one fused device pass.
 
-    ``L`` is the starting per-block dictionary size; a block with more
-    labels makes the sweep rerun with L doubled, up to the engine's bound
+    ``L`` is the starting per-block dictionary size. Under ``"cuda"`` and
+    ``"torch"`` a block with more labels makes the sweep rerun with L
+    doubled, up to the engine's bound
     (:func:`~tissue_analysis_tpu_torch.ops.block_sweep.max_dict_size` for
     the kernel), and the largest converged size is remembered for later
-    stacks of the same shape, label count and block. A 2D stack is swept as
+    stacks of the same shape, label count and block. Under ``"auto"`` an
+    exact count of every block's labels before the sweep gives that size
+    (:func:`fit_dictionary`), so the sweep runs once. A 2D stack is swept as
     ``[1, Y, X]`` with block :data:`BLOCK_2D`.
 
     ``n_bucket`` sweeps a label space of ``max(n_labels, n_bucket)``; the
@@ -281,38 +402,41 @@ def analyze_stack(
     shape, so the bucket only keeps the reference's contract (and frames of
     one bucket share a converged dictionary size).
 
-    ``engine="chunked"`` (the flat engine, :func:`flat_sweep`) has no
-    dictionary: it takes neither ``L`` nor ``n_bucket`` into account.
-    ``engine="auto"`` gives it a stack whose labels a block are past the
-    block engine's capacity, before any launch (see the module docstring).
-    A stack below that with one block past it raises and names
-    ``"chunked"``."""
-    return collect_stack(dispatch_stack(stack, engine, L, n_bucket))
+    ``engine="chunked"`` (the flat engine, :func:`flat_sweep`, in chunks of
+    ``chunk`` voxels) has no dictionary: it takes neither ``L`` nor
+    ``n_bucket`` into account. ``engine="auto"`` gives it a stack that no
+    block sweep can take, before any launch (see the module docstring).
+    The reference's keywords are accepted: ``max_pairs`` (ignored: the
+    port's pair table has the size of its content) and ``block_config``
+    (None only)."""
+    return collect_stack(dispatch_stack(
+        stack, engine, L, n_bucket, max_pairs=max_pairs, chunk=chunk,
+        block_config=block_config,
+    ))
 
 
 def dispatch_stack(
     stack: LabeledStack, engine: str = "auto", L: int = 32,
-    n_bucket: Optional[int] = None,
+    n_bucket: Optional[int] = None, *, max_pairs: Optional[int] = None,
+    chunk: Optional[int] = None, block_config=None,
 ) -> Dispatched:
-    """Launch the sweep of ``stack`` at the converged dictionary size without
-    waiting for the device; :func:`collect_stack` finishes it."""
-    image = stack
+    """Launch the sweep of ``stack`` without waiting for the device;
+    :func:`collect_stack` finishes it. Under ``"auto"`` a block sweep is
+    preceded by :func:`fit_dictionary`'s count, whose largest value is read
+    back: one wait for the device before the launch. The other arguments
+    are :func:`analyze_stack`'s."""
+    _no_cfg(block_config)
     if stack.ndim not in (2, 3):
         raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
-    sweep = _pick_sweep(stack, engine)
-    n = stack.n_labels
-    if sweep is flat_sweep:
-        return Dispatched(stack, image, sweep, None, None, 0, n, flat_sweep(stack))
-    if stack.ndim == 2:
-        stack, block = _lift_2d(stack), BLOCK_2D
-    else:
-        block = DEFAULT_BLOCK
-    n_sweep = n if n_bucket is None else max(n, int(n_bucket))
-    key = (stack.shape, n_sweep, tuple(block), int(L))
-    Lc = _GOOD_L.get(key, int(L))
-    with timing.stage("device sweep (block)", int(np.prod(stack.shape)), stack.device):
-        out = sweep(stack.dense, n_sweep, block, Lc)
-    return Dispatched(stack, image, sweep, block, key, Lc, n_sweep, out)
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+    if engine == "auto":
+        if auto_engine(stack, stack.device) == "chunked":
+            return _dispatch_flat(stack, chunk)
+        return dispatch_counted(stack, L, n_bucket, chunk)
+    if engine == "chunked":
+        return _dispatch_flat(stack, chunk)
+    return _launch(_block_plan(stack, engine, L, n_bucket))
 
 
 def collect_stack(d: Dispatched) -> FeatureTable:
@@ -332,6 +456,7 @@ def analyze_stack_chunked(
 
 
 def _no_cfg(cfg) -> None:
+    """The reference's ``cfg`` / ``block_config``: the port has none."""
     if cfg is not None:
         raise ValueError(
             "the port has no PallasConfig / BlockConfig: pass cfg=None (the "
@@ -389,7 +514,7 @@ def finish_stack(d: Dispatched) -> Finished:
     stack, Lc = d.stack, d.L
     dev = stack.device
     n, n_sweep = stack.n_labels, d.n_sweep
-    bound = max_dict_size() if d.sweep is block_sweep else PLAIN_MAX_DICT
+    bound = dict_bound("cuda" if d.sweep is block_sweep else "torch")
     while bool(out.ovf.any()):
         if Lc >= bound:
             raise RuntimeError(
@@ -463,12 +588,8 @@ def _margin_from_bbox(count, cmin, cmax, shape) -> np.ndarray:
 
 def _lift_2d(stack: LabeledStack) -> LabeledStack:
     """[Y, X] stack → [1, Y, X] view, so 2D rides the 3D block sweep."""
-    return LabeledStack(
-        dense=stack.dense[None],
-        ids=stack.ids,
-        voxelsize=(1.0,) + stack.voxelsize,
-        background_segment=stack.background_segment,
-    )
+    return dataclasses.replace(stack, dense=stack.dense[None],
+                               voxelsize=(1.0,) + stack.voxelsize)
 
 
 def analyze(
@@ -477,14 +598,18 @@ def analyze(
     background: Optional[int] = 1,
     device=None,
     engine: str = "auto",
+    *,
+    max_pairs: Optional[int] = None,
+    chunk: Optional[int] = None,
 ) -> FeatureTable:
     """Analyze a labeled image (host array / SpatialImage) in one fused pass
     on ``device`` (default: the current CUDA device; ``"cpu"`` runs the
-    plain engine on the CPU)."""
+    plain engine on the CPU). ``max_pairs`` and ``chunk`` are
+    :func:`analyze_stack`'s."""
     stack = LabeledStack.from_array(
         image, voxelsize=voxelsize, background=background, device=device
     )
-    return analyze_stack(stack, engine=engine)
+    return analyze_stack(stack, engine=engine, max_pairs=max_pairs, chunk=chunk)
 
 
 def analyze_raw(

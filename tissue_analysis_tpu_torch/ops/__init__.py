@@ -1,3 +1,4 @@
-"""Device operators: the per-block sweep (``block_sweep``: CUDA kernel and
-plain version), the combine / pair reduction after it (``combine``), and
-the z-seam between two streamed slabs (``seam``)."""
+"""Device operators: the per-block sweep and the count of each block's
+labels before it (``block_sweep``: CUDA kernels and plain versions), the
+combine / pair reduction after it (``combine``), and the z-seam between two
+streamed slabs (``seam``)."""

@@ -27,6 +27,13 @@ or int32) at run time and serves both. For every block of shape ``block``
   Such a block's other outputs are undefined (the kernel's differ from the
   plain version's); callers rerun with a larger L.
 
+:func:`block_label_counts` is the dictionary step alone: int32 ``[B]``, each
+block's number of dictionary labels, saturated at ``cap + 1``, so that
+``count[b] > L`` exactly where a sweep at ``L`` sets ``ovf[b]`` (for L ≤
+cap). It has no TPU counterpart: the engine reads it before a sweep to pick
+the sweep's L, or no block sweep at all, where the reference's engine
+catches a failed sweep and falls back.
+
 :func:`block_sweep` launches the CUDA kernel (``csrc/block_sweep.cu``) for a
 CUDA tensor and runs :func:`block_sweep_reference` for a CPU tensor; it
 never falls back from one to the other. The kernel is compiled with nvcc on
@@ -55,6 +62,8 @@ import torch
 __all__ = [
     "IMAX",
     "SweepOut",
+    "block_label_counts",
+    "block_label_counts_reference",
     "block_sweep",
     "block_sweep_reference",
     "build_kernel",
@@ -160,6 +169,10 @@ def build_kernel() -> ctypes.CDLL:
         lib.ta_block_sweep.restype = ci
         lib.ta_block_sweep_smem_bytes.argtypes = [ci]
         lib.ta_block_sweep_smem_bytes.restype = ctypes.c_longlong
+        lib.ta_block_label_count.argtypes = [vp] + [ci] * 9 + [vp] * 2
+        lib.ta_block_label_count.restype = ci
+        lib.ta_block_label_count_smem_bytes.argtypes = [ci]
+        lib.ta_block_label_count_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
         return lib
 
@@ -246,6 +259,96 @@ def _launch(lib, dense, n, block, L) -> SweepOut:
 block_sweep.launches = 0
 
 
+def block_label_counts(dense: torch.Tensor, n: int, block, cap: int) -> torch.Tensor:
+    """Each block's number of dictionary labels, saturated at ``cap + 1``:
+    int32 ``[B]`` (see the module docstring).
+
+    A CUDA tensor launches the hand-written count kernel (or raises); a CPU
+    tensor runs :func:`block_label_counts_reference`.
+    ``block_label_counts.launches`` counts kernel launches."""
+    block = tuple(int(b) for b in block)
+    _check(dense, n, block, cap)
+    if dense.device.type == "cpu":
+        return block_label_counts_reference(dense, n, block, cap)
+    if dense.device.type != "cuda":
+        raise ValueError(f"unsupported device {dense.device}")
+    return _launch_count(build_kernel(), dense, n, block, cap)
+
+
+def _launch_count(lib, dense, n, block, cap) -> torch.Tensor:
+    if lib.ta_block_label_count_smem_bytes(cap) > _MAX_SMEM:
+        raise ValueError(f"count cap={cap} exceeds the count kernel's shared-memory bound")
+    Z, Y, X = dense.shape
+    gz, gy, gx = _grid(dense.shape, block)
+    dev = dense.device
+    count = torch.empty((gz * gy * gx,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ta_block_label_count(
+            dense.data_ptr(), int(dense.dtype == torch.int32), Z, Y, X,
+            *block, cap, n, count.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_label_count kernel launch failed: CUDA error {err}")
+    block_label_counts.launches += 1
+    return count
+
+
+block_label_counts.launches = 0
+
+
+def _layout(dense: torch.Tensor, block):
+    """The plain versions' view of ``dense``: its labels (int64, flat),
+    the voxel coordinates, each voxel's block, the block count, and per
+    axis the +1 neighbour (the voxels that have one, its label, and whether
+    it lies past the voxel's block's far face)."""
+    dev = dense.device
+    Z, Y, X = dense.shape
+    bz, by, bx = block
+    gz, gy, gx = _grid(dense.shape, block)
+    v = dense.reshape(-1).to(torch.int64)
+    ar = [torch.arange(s, device=dev, dtype=torch.int64) for s in (Z, Y, X)]
+    zc = ar[0].view(-1, 1, 1).expand(Z, Y, X).reshape(-1)
+    yc = ar[1].view(1, -1, 1).expand(Z, Y, X).reshape(-1)
+    xc = ar[2].view(1, 1, -1).expand(Z, Y, X).reshape(-1)
+    bidx = ((zc // bz) * gy + yc // by) * gx + xc // bx
+    nbrs = []
+    for coord, extent, bs, stride in (
+        (zc, Z, bz, Y * X), (yc, Y, by, X), (xc, X, bx, 1)
+    ):
+        inr = coord + 1 < extent
+        idx = torch.nonzero(inr).squeeze(1)
+        nv = v[idx + stride]
+        far = (coord[idx] % bs) == bs - 1
+        nbrs.append((idx, nv, far))
+    return v, (zc, yc, xc), bidx, gz * gy * gx, nbrs
+
+
+def _dictionary(v, n: int, bidx, B: int, nbrs):
+    """Every block's dictionary, the labels < n of its voxels and of the +1
+    neighbours past its far faces, as sorted unique keys block·(n+1) +
+    label, and the dictionary size of each block."""
+    n1 = n + 1
+    lab_ok = (v >= 0) & (v < n)
+    keys = [bidx[lab_ok] * n1 + v[lab_ok]]
+    for idx, nv, far in nbrs:
+        ok = far & (nv >= 0) & (nv < n)
+        keys.append(bidx[idx[ok]] * n1 + nv[ok])
+    ukeys = torch.unique(torch.cat(keys), sorted=True)
+    return ukeys, torch.bincount(ukeys // n1, minlength=B)
+
+
+def block_label_counts_reference(dense: torch.Tensor, n: int, block, cap: int) -> torch.Tensor:
+    """Plain PyTorch version of the count kernel, on the device of
+    ``dense``: the sizes of :func:`block_sweep_reference`'s dictionaries,
+    saturated at ``cap + 1``."""
+    block = tuple(int(b) for b in block)
+    _check(dense, n, block, cap)
+    v, _, bidx, B, nbrs = _layout(dense, block)
+    sizes = _dictionary(v, n, bidx, B, nbrs)[1]
+    return sizes.clamp_(max=cap + 1).to(torch.int32)
+
+
 def block_sweep_reference(
     dense: torch.Tensor, n: int, block=DEFAULT_BLOCK, L: int = 32
 ) -> SweepOut:
@@ -259,41 +362,16 @@ def block_sweep_reference(
     block = tuple(int(b) for b in block)
     _check(dense, n, block, L)
     dev = dense.device
-    Z, Y, X = dense.shape
-    bz, by, bx = block
-    gz, gy, gx = _grid(dense.shape, block)
-    B = gz * gy * gx
     n1 = n + 1
-    v = dense.reshape(-1).to(torch.int64)
+    v, (zc, yc, xc), bidx, B, nbrs = _layout(dense, block)
     lab_ok = (v >= 0) & (v < n)
 
-    ar = [torch.arange(s, device=dev, dtype=torch.int64) for s in (Z, Y, X)]
-    zc = ar[0].view(-1, 1, 1).expand(Z, Y, X).reshape(-1)
-    yc = ar[1].view(1, -1, 1).expand(Z, Y, X).reshape(-1)
-    xc = ar[2].view(1, 1, -1).expand(Z, Y, X).reshape(-1)
-    bidx = ((zc // bz) * gy + yc // by) * gx + xc // bx
-
-    # +1 neighbour per axis: flat stride, in-range mask, far-face mask
-    nbrs = []
-    for coord, extent, bs, stride in (
-        (zc, Z, bz, Y * X), (yc, Y, by, X), (xc, X, bx, 1)
-    ):
-        inr = coord + 1 < extent
-        idx = torch.nonzero(inr).squeeze(1)
-        nv = v[idx + stride]
-        far = (coord[idx] % bs) == bs - 1
-        nbrs.append((idx, nv, far))
-
     # ---- dictionary keys: block voxels + neighbours past the far faces
-    keys = [bidx[lab_ok] * n1 + v[lab_ok]]
-    for idx, nv, far in nbrs:
-        ok = far & (nv >= 0) & (nv < n)
-        keys.append(bidx[idx[ok]] * n1 + nv[ok])
-    ukeys = torch.unique(torch.cat(keys), sorted=True)
+    ukeys, sizes = _dictionary(v, n, bidx, B, nbrs)
     ublk = ukeys // n1
     start = torch.searchsorted(ukeys, ublk * n1)
     rank = torch.arange(ukeys.shape[0], device=dev) - start
-    ovf = (torch.bincount(ublk, minlength=B) > L).to(torch.int32)
+    ovf = (sizes > L).to(torch.int32)
     keep = rank < L
     ids = torch.full((B, L), IMAX, dtype=torch.int32, device=dev)
     ids[ublk[keep], rank[keep]] = (ukeys[keep] % n1).to(torch.int32)

@@ -54,21 +54,25 @@ def run(n_devices: int, device="cpu") -> None:
     _check(analyze_sharded(st1, mesh), ref1, "case1")
     _check(analyze_sharded(st1, mesh, engine="chunked"), ref1, "case1, flat engine")
 
-    # case 2: several blocks a slab and every seam crossed by cells; at
-    # L = 4 the slabs rerun with L doubled
+    # case 2: several blocks a slab and every seam crossed by cells; from
+    # L = 4 the block engine's slabs rerun with L doubled, while "auto"
+    # counts every slab's blocks first and sweeps each slab once
     st2 = stack_of(voronoi_stack((120, 16, 128), 400, seed=7, sphere=False))
     L = 4
-    for key in [k for k in engine._GOOD_L if k[3] == L]:
-        del engine._GOOD_L[key]
-    with timing.collect() as t:
-        got2 = analyze_sharded(st2, mesh, L=L)
-    sweeps = sum(s.name == "device sweep (block)" for s in t.stages)
-    slabs = sum(s.name == "shard: shift + z-seam" for s in t.stages)
-    if sweeps <= slabs:
-        raise AssertionError(f"case2: {sweeps} sweeps of {slabs} slabs, no rerun at L={L}")
-    ref2 = engine.analyze_stack(st2)
-    _check(got2, ref2, "case2")
-    _check(analyze_sharded(st2, mesh, engine="chunked"), ref2, "case2, flat engine")
+    sweeps, block_engine = {}, engine.block_engine("auto", device)
+    for name in (block_engine, "auto"):
+        for key in [k for k in engine._GOOD_L if k[3] == L]:
+            del engine._GOOD_L[key]
+        with timing.collect() as t:
+            got2 = analyze_sharded(st2, mesh, engine=name, L=L)
+        sweeps[name] = sum(s.name == "device sweep (block)" for s in t.stages)
+        slabs = sum(s.name == "shard: shift + z-seam" for s in t.stages)
+        _check(got2, engine.analyze_stack(st2), f"case2 {name}")
+    if not sweeps["auto"] == slabs < sweeps[block_engine]:
+        raise AssertionError(f"case2: {sweeps} sweeps of {slabs} slabs from L={L}")
+    sweeps = sweeps[block_engine]
+    _check(analyze_sharded(st2, mesh, engine="chunked"), engine.analyze_stack(st2),
+           "case2, flat engine")
 
     # case 3: the streamed path, cross-section much wider than a slab
     img3 = voronoi_stack((32, 192, 192), 150, seed=11, sphere=False)
@@ -79,7 +83,7 @@ def run(n_devices: int, device="cpu") -> None:
         f"dryrun_multichip ok: {n_devices} x {mesh.devices[0]}, sharded (block and "
         f"flat engine) and streamed tables == analyze_stack (case1 {st1.n_labels} labels, "
         f"depth 30; case2 {st2.n_labels} labels, {sweeps} sweeps of {slabs} "
-        f"slabs from L={L}; case3 streamed slab_z=8, {got3.n_labels} labels)",
+        f"slabs from L={L}, one a slab under auto; case3 streamed slab_z=8, {got3.n_labels} labels)",
         flush=True,
     )
 

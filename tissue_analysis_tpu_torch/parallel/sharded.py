@@ -31,8 +31,11 @@ at its global flat offset (``ops.segred.moment_sweep``, no shift
 afterwards) and its pairs (``ops.stencil.pair_sweep``) with the same
 z-seam, and the same merge and assembly follow. ``engine="auto"`` goes
 there too, before any sweep, for a stack whose labels a block are past
-the block engine's capacity for one slab (``engine.auto_engine``: a
-warning and one counted reroute).
+the block engine's capacity for one slab (``engine.auto_engine``), or one
+slab of which no block sweep can take: every slab's blocks are counted on
+its device before any slab is swept (``engine.fit_dictionary``), and one
+slab past the count sends the whole stack there (a warning and one counted
+reroute). Otherwise each slab sweeps once, at its counted L.
 
 A mesh may name one card several times (``Mesh((cuda:0,) * 4)``): four
 slabs, four sweeps, a real halo and merge, on one card. Nothing maps a
@@ -51,12 +54,18 @@ from tissue_analysis_tpu_torch.core.stack import LabeledStack, resolve_device
 from tissue_analysis_tpu_torch.engine import (
     BLOCK_2D,
     Finished,
+    _block_plan,
+    _launch,
+    _no_cfg,
+    _reroute,
     assemble_table,
     auto_engine,
     block_engine,
-    dispatch_stack,
     finish_stack,
+    fit_dictionary,
+    n_blocks,
     resolve_engine,
+    sweep_bytes,
 )
 from tissue_analysis_tpu_torch.features.table import FeatureTable
 from tissue_analysis_tpu_torch.ops import combine, segred, stencil
@@ -163,7 +172,7 @@ def _with_seam(slabs, k: int, n: int, pkey, ptotal):
 
 def analyze_sharded(
     stack: LabeledStack, mesh: Optional[Mesh] = None, engine: str = "auto",
-    L: int = 32,
+    L: int = 32, *, max_pairs: Optional[int] = None, chunk: Optional[int] = None,
 ) -> FeatureTable:
     """Multi-device counterpart of ``engine.analyze_stack``, equal to it
     field by field (see the module docstring for the steps).
@@ -172,14 +181,15 @@ def analyze_sharded(
     The stack may live on any device; each slab is copied to its mesh
     device. ``engine`` takes the port's and the JAX package's names
     (``pallas`` → ``cuda``, ``blocked`` → ``torch``, ``chunked`` →
-    :func:`analyze_sharded_chunked`); ``cuda`` needs every slab on a CUDA
-    device. ``L`` is the starting dictionary size; slabs of one shape share
-    the converged size across calls."""
+    :func:`analyze_sharded_chunked`, which takes ``max_pairs`` and
+    ``chunk``); ``cuda`` needs every slab on a CUDA device. ``L`` is the
+    starting dictionary size; slabs of one shape share the converged size
+    across calls."""
     if mesh is None:
         mesh = make_mesh()
     engine = resolve_engine(engine)
     if engine == "chunked":
-        return analyze_sharded_chunked(stack, mesh)
+        return analyze_sharded_chunked(stack, mesh, max_pairs, chunk)
     if stack.ndim not in (2, 3):
         raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
     n = stack.n_labels
@@ -187,16 +197,26 @@ def analyze_sharded(
         # the whole stack's test: a slab does not hold every label
         part = (min(_slab_depth(stack.shape, mesh), stack.shape[0]),) + stack.shape[1:]
         if auto_engine(stack, mesh.devices[0], part) == "chunked":
-            return analyze_sharded_chunked(stack, mesh)
+            return analyze_sharded_chunked(stack, mesh, max_pairs, chunk)
 
     with timing.stage("shard: slab copy", int(stack.dense.numel())):
         slabs = _split(stack.dense, mesh)
-    handles = [
-        dispatch_stack(
-            dataclasses.replace(stack, dense=dense), block_engine(engine, dense.device), L
-        )
+    plans = [
+        _block_plan(dataclasses.replace(stack, dense=dense), block_engine(engine, dense.device), L)
         for _, dense in slabs
     ]
+    if engine == "auto":
+        # every slab counted before any sweep; the sweeps of one device
+        # hold their outputs at once
+        held: dict = {}
+        for p in plans:
+            dev = p.stack.device
+            why = fit_dictionary(p, held.get(dev, 0))
+            if why is not None:
+                _reroute(why)
+                return analyze_sharded_chunked(stack, mesh, max_pairs, chunk)
+            held[dev] = held.get(dev, 0) + sweep_bytes(n_blocks(p.stack.shape, p.block), p.L)
+    handles = [_launch(p) for p in plans]
 
     parts = []
     for k, ((z0, dense), h) in enumerate(zip(slabs, handles)):
@@ -256,21 +276,24 @@ def sharded_pipeline(
 
 
 def analyze_sharded_pallas(
-    stack: LabeledStack, mesh: Optional[Mesh] = None, L: int = 32
+    stack: LabeledStack, mesh: Optional[Mesh] = None, L: int = 32, *, cfg=None
 ) -> FeatureTable:
     """:func:`analyze_sharded` through the CUDA kernel (the counterpart of
-    the reference's sharded Pallas engine); 3D stacks only."""
+    the reference's sharded Pallas engine); 3D stacks only. ``cfg`` is the
+    reference's (None only)."""
+    _no_cfg(cfg)
     if stack.ndim != 3:
         raise ValueError("pallas sharded engine requires a 3D stack")
     return analyze_sharded(stack, mesh, "cuda", L)
 
 
 def analyze_sharded_blocked(
-    stack: LabeledStack, mesh: Optional[Mesh] = None, L: int = 32
+    stack: LabeledStack, mesh: Optional[Mesh] = None, L: int = 32, *, cfg=None
 ) -> FeatureTable:
     """:func:`analyze_sharded` through the plain PyTorch sweep (the
     counterpart of the reference's sharded blocked engine); 3D stacks
-    only."""
+    only. ``cfg`` is the reference's (None only)."""
+    _no_cfg(cfg)
     if stack.ndim != 3:
         raise ValueError("blocked sharded engine requires a 3D stack")
     return analyze_sharded(stack, mesh, "torch", L)

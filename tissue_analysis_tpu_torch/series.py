@@ -14,8 +14,11 @@ A confocal time series is a first-class batch:
   one :class:`TemporalPropertyGraph` (the reference's
   ``TemporalPropertyGraph.extend`` flow).
 
-Counterpart of ``tissue_analysis_tpu/series.py``. A frame that fails raises:
-nothing is rerouted to another engine or device.
+Counterpart of ``tissue_analysis_tpu/series.py``. Each frame goes through
+``dispatch_stack``'s ``engine="auto"``: a frame that no block sweep can take
+(one block past the dictionary, found by the count before its sweep) goes
+to the flat engine with a warning, the others to the block engine. A frame
+that fails raises: nothing is rerouted after a launch.
 """
 
 from __future__ import annotations

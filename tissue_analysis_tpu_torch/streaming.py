@@ -14,7 +14,11 @@ dividing the depth or not.
   (:func:`~tissue_analysis_tpu_torch.engine.dispatch_stack` /
   :func:`~tissue_analysis_tpu_torch.engine.collect_stack`) with slab-local
   z; the global z offset is re-applied on the host in exact int64
-  (:func:`_shift_moments_z`).
+  (:func:`_shift_moments_z`). Under ``engine="auto"`` each slab's blocks
+  are counted and the slab routed on its own
+  (:func:`~tissue_analysis_tpu_torch.engine.dispatch_counted`): a slab that
+  no block sweep can take goes to the flat engine, the others to the block
+  engine, and the host combine takes either table.
 - The slab's own far z plane reads as the dropped label and counts no
   face. The z-faces between the previous slab's last plane, kept on the
   device, and this slab's first plane are counted by
@@ -38,8 +42,9 @@ import numpy as np
 from tissue_analysis_tpu_torch.core.stack import LabeledStack, resolve_device
 from tissue_analysis_tpu_torch.engine import (
     _margin_from_bbox,
-    block_engine,
+    _no_cfg,
     collect_stack,
+    dispatch_counted,
     dispatch_stack,
     resolve_engine,
 )
@@ -265,6 +270,8 @@ def analyze_streamed(
     slab_z: Optional[int] = None,
     engine: str = "auto",
     device=None,
+    *,
+    cfg=None,
 ) -> FeatureTable:
     """Streamed out-of-core analysis → FeatureTable (bit-identical to
     :func:`engine.analyze_stack` on the same voxels).
@@ -275,12 +282,16 @@ def analyze_streamed(
     its sweep's outputs and the previous slab's last plane, whatever the
     stack's depth. ``engine`` takes the
     port's names or the JAX package's (``pallas`` → ``cuda``, ``blocked``
-    → ``torch``). ``auto`` sweeps every slab by blocks, as the reference's
-    streamed engine does, and raises where a block is past that engine's
-    dictionary; ``chunked`` sweeps every slab with the flat engine.
+    → ``torch``). ``auto`` counts each slab's blocks before its sweep and
+    gives a slab that no block sweep can take to the flat engine, with a
+    warning (``engine.reroutes``); any other name applies to every slab, so
+    ``cuda`` and ``torch`` raise where a block is past their dictionary and
+    ``chunked`` sweeps every slab with the flat engine. ``cfg`` is the
+    reference's (None only).
     """
+    _no_cfg(cfg)
     dev = resolve_device(device)
-    engine = block_engine(resolve_engine(engine), dev)
+    engine = resolve_engine(engine)
     if isinstance(source, np.ndarray) or (
         hasattr(source, "shape") and not hasattr(source, "read")
     ):
@@ -323,7 +334,10 @@ def analyze_streamed(
         with timing.stage("stream: slab read+relabel", (z1 - z0) * shape[1] * shape[2]):
             slab = relabel(source.read(z0, z1))
         stack = LabeledStack.from_numpy(slab, ids, voxelsize, background_segment, dev)
-        handle = dispatch_stack(stack, engine)
+        if engine == "auto":
+            handle = dispatch_counted(stack)
+        else:
+            handle = dispatch_stack(stack, engine)
         if pending is not None:
             collect(*pending)
         # copies of the seam planes: a slab's memory goes once it is collected
