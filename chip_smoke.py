@@ -59,9 +59,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
     or more cards;
 15. the profiler hook: one converged ``analyze_stack`` of the 512³ stack and
     one of grid4 under ``timing.profile_trace("build/traces")``; the trace
-    file exists, the block-sweep kernel is among the device entries, and the
-    device time of every other launch (what "combine + pair reduce" is made
-    of) is logged, largest first;
+    file exists, the block-sweep and count kernels are among the device
+    entries, no ``max`` reduction follows the count (the kernel writes its
+    largest count), and the device time of every other launch (what
+    "combine + pair reduce" is made of) is logged, largest first;
 16. the host profile: ``scripts/torch_host_profile.py`` at its voronoi-512,
     grid8 and grid4 presets, the readbacks from the card;
 17. ``bench_torch.py`` on the 512³ stack already in memory (its JSON line is
@@ -84,8 +85,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the 512³ stack over four slabs on one card against the resident table;
 19. the count (``block_label_count``, the sweep's dictionary step alone,
     which ``engine="auto"`` runs before every block sweep): kernel ==
-    plain version, exactly, at voronoi-512 uint16 and int32, 4096² 2D,
-    grid8-512, grid4 and dense-grid2, timed beside its bound and the sweep;
+    plain version, exactly, and its largest count == the plain counts'
+    maximum, at voronoi-512 uint16 and int32, 4096² 2D, grid8-512, grid4
+    and dense-grid2 (TMA tiles), a crop of the 512³ stack to rows of 301
+    uint16 (direct loads) and an int32 crop ragged on every axis, each with
+    the load path it took, timed beside its bound and the sweep;
     then voronoi-512-dense1, phase 3's stack with one block (z 256:264,
     y 256:272, x 256:384) overwritten by 16,384 fresh labels, past every
     dictionary: ``auto`` counts, reroutes before any sweep and equals
@@ -163,6 +167,9 @@ SERIES_SEEDS = (2, 3)  # frames after the seed-1 stack
 DENSE1_BLOCK = (slice(256, 264), slice(256, 272), slice(256, 384))
 DENSE1_FRESH, DENSE600_FRESH = 16384, 600
 SLAB_Z = 128
+# phase 19's crops of the 512^3 stack: a row pitch TMA cannot take, and
+# ragged far edges on every axis
+UNALIGNED_X, RAGGED = 301, (509, 507, 300)
 TILES = (2, 2, 2)
 EXPECT_LABELS_TILED, EXPECT_PAIRS_TILED = 16241, 113408
 FIELDS = (
@@ -927,6 +934,10 @@ def phase_profiler(stack, grid4, log_prefix="[15]"):
         ops = timing.device_times(prof, by_op=True)
         log(f"{log_prefix}   {name} the same device time by the operator that launched it: "
             + "; ".join(f"{k} {us / 1e3:.3f} ms x{c}" for k, c, us in ops[:14]))
+        # the count writes its own largest count: no reduction launched after it
+        if not any("block_label_count_kernel" in r[0] for r in rows) or any(
+                k == "aten::max" for k, _, _ in ops):
+            raise AssertionError(f"profiler {name}: no count kernel, or a max launched after it")
     del g4
     return launches
 
@@ -1199,39 +1210,46 @@ def count_bound(dense, block) -> dict:
 
 
 def phase_count(cases, log_prefix="[19]"):
-    """The count kernel against its plain version at the main path's shapes
-    (``cases``: name, dense, n, block), timed beside its bound and beside
-    the sweep at the L the count gives; returns one record a shape."""
+    """The count kernel against its plain version (``cases``: name, dense,
+    n, block, whether to time the sweep beside it): its counts exactly, its
+    largest count against the plain counts' maximum, and the load path the
+    rule (``count_plan``) gives; timed beside its bound and beside the
+    sweep at the L the count gives. Returns one record a shape."""
     import torch
 
     from tissue_analysis_tpu_torch.ops.block_sweep import (
-        block_label_counts, block_label_counts_reference, block_sweep, max_dict_size,
+        block_label_counts, block_label_counts_reference, block_sweep, count_block_labels,
+        count_plan, max_dict_size,
     )
 
     cap = max_dict_size()
     record = []
-    for name, dense, n, block in cases:
-        k = block_label_counts(dense, n, block, cap)
+    for name, dense, n, block, with_sweep in cases:
+        k = count_block_labels(dense, n, block, cap)
+        path = block_label_counts.path
         r = block_label_counts_reference(dense, n, block, cap)
         sync()
-        err = max_abs_diff(k, r)
-        if not torch.equal(k, r):
+        err = max_abs_diff(k.counts, r)
+        if not torch.equal(k.counts, r):
             raise AssertionError(f"count {name}: kernel and plain version differ (max |diff| {err})")
-        m = int(k.max())
+        m = int(k.largest)
+        if m != int(r.max()) or path != count_plan(dense, block, cap).path:
+            raise AssertionError(f"count {name}: largest {m} against {int(r.max())}, path {path}")
         L = 32
         while L < m <= cap:
             L = min(2 * L, cap)
-        t_k = event_ms(lambda: block_label_counts(dense, n, block, cap))
+        t_k = event_ms(lambda: count_block_labels(dense, n, block, cap))
         t_p = event_ms(lambda: block_label_counts_reference(dense, n, block, cap), reps=3, warmup=1)
         # a block past the cap: no sweep can take the stack
-        t_s = event_ms(lambda: block_sweep(dense, n, block, L)) if m <= cap else None
+        t_s = event_ms(lambda: block_sweep(dense, n, block, L)) if with_sweep and m <= cap else None
         bound = count_bound(dense, block)
-        sweep = f"sweep at L={L} {t_s * 1e3:.3f} ms" if t_s else "no sweep can take it"
-        log(f"{log_prefix} count {name}: kernel == plain version, exactly ({k.numel()} blocks, "
-            f"largest {m if m <= cap else f'> {cap} (saturated)'}, cap {cap}); kernel "
-            f"{t_k * 1e3:.3f} ms (bound {bound['bound_ms']:.3f} ms, {bound['bytes']:,} B), "
-            f"plain {t_p * 1e3:.3f} ms, {sweep}")
-        record.append({"shape": name, "max_abs_err": float(err), "ms": t_k * 1e3,
+        sweep = (f"sweep at L={L} {t_s * 1e3:.3f} ms" if t_s else
+                 "no sweep can take it" if m > cap else "sweep not timed")
+        log(f"{log_prefix} count {name}: {path} path, kernel == plain version, exactly "
+            f"({k.counts.numel()} blocks, largest {m if m <= cap else f'> {cap} (saturated)'} "
+            f"written by the kernel, cap {cap}); kernel {t_k * 1e3:.3f} ms (bound "
+            f"{bound['bound_ms']:.3f} ms, {bound['bytes']:,} B), plain {t_p * 1e3:.3f} ms, {sweep}")
+        record.append({"shape": name, "path": path, "max_abs_err": float(err), "ms": t_k * 1e3,
                        "plain_ms": t_p * 1e3, "bound_ms": bound["bound_ms"],
                        "bound_by": bound["bound_by"], "largest": m, "sweep_L": L,
                        "sweep_ms": None if t_s is None else t_s * 1e3})
@@ -1555,14 +1573,23 @@ def run_phases(futures) -> int:
     g8 = LabeledStack.from_array(grid8[0], background=None, device="cuda")
     g4 = LabeledStack.from_array(grid4[0], background=None, device="cuda")
     del img2d, grid8, grid4
+    # and two crops of the 512^3 stack: rows of 301 uint16 (602 B, no
+    # multiple of 16: the direct-load path), and int32 ragged on all three
+    # axes (tiles past the stack's far edges)
     counts = phase_count([
-        (f"voronoi-{SIZE} uint16", dense16, n, DEFAULT_BLOCK),
-        (f"voronoi-{SIZE} int32", dense32, n, DEFAULT_BLOCK),
-        (f"voronoi-{SIZE_2D}^2 2D block 1x128x128", st2d.dense[None], st2d.n_labels, BLOCK_2D),
-        (f"grid8-{SIZE} int32", g8.dense, g8.n_labels, DEFAULT_BLOCK),
-        ("grid4 int32", g4.dense, g4.n_labels, DEFAULT_BLOCK),
-        ("dense-grid2 int32", dense2.dense, dense2.n_labels, DEFAULT_BLOCK),
+        (f"voronoi-{SIZE} uint16", dense16, n, DEFAULT_BLOCK, True),
+        (f"voronoi-{SIZE} int32", dense32, n, DEFAULT_BLOCK, True),
+        (f"voronoi-{SIZE_2D}^2 2D block 1x128x128", st2d.dense[None], st2d.n_labels, BLOCK_2D, True),
+        (f"grid8-{SIZE} int32", g8.dense, g8.n_labels, DEFAULT_BLOCK, True),
+        ("grid4 int32", g4.dense, g4.n_labels, DEFAULT_BLOCK, True),
+        ("dense-grid2 int32", dense2.dense, dense2.n_labels, DEFAULT_BLOCK, True),
+        (f"voronoi-{SIZE} uint16 rows of {UNALIGNED_X}", dense16[:, :, :UNALIGNED_X].contiguous(),
+         n, DEFAULT_BLOCK, False),
+        (f"voronoi-{SIZE} int32 ragged {RAGGED}",
+         dense32[:RAGGED[0], :RAGGED[1], :RAGGED[2]].contiguous(), n, DEFAULT_BLOCK, False),
     ])
+    if [c["path"] for c in counts] != ["bulk"] * 6 + ["direct", "bulk"]:
+        raise AssertionError(f"count paths {[c['path'] for c in counts]}")
     del st2d, g8, g4, dense2, dense32
     route_counts = phase_routes(img, frame2)
     del frame2

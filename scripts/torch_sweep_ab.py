@@ -24,7 +24,10 @@ Each tree runs in its own process (``sys.path`` pointing at the tree), in
 the order given: ``--order ABBA`` with two trees runs A B B A, and
 ``--rounds`` repeats that. A process checks its kernel against its plain
 version (``torch.equal`` on every output), then times it with CUDA events
-over ``--reps`` back-to-back launches after three warmups, and the host
+over ``--reps`` back-to-back launches after three warmups; the same for
+the count kernel (``block_label_counts`` at the kernel's bound, against
+``block_label_counts_reference``, with the load path it took where the
+tree reports one); then the host
 time a launch takes to enqueue on ``voronoi-64`` (the mean over 1000 calls
 without a sync, the device then being idle behind the host). Then the
 engine on the same stacks (``engine="auto"``, on the card, a stack of
@@ -33,8 +36,15 @@ of three ``analyze_stack`` calls each after the converged dictionary sizes
 are forgotten (what a new shape pays: the overflow reruns, or a count);
 ``converged_ms``, the best of seven calls; ``first_device_ms`` and
 ``device_ms``, the same two for ``finish_stack(dispatch_stack(...))``, the
-device side without the readback and host assembly. Every result is one JSON line, with the card's
-name and power limit.
+device side without the readback and host assembly. Last, the count's
+share of a converged ``analyze_stack`` at voronoi-512 (``count_split``):
+the device time of the count kernel and of any reduction launched after
+it, from one pass under ``timing.profile_trace``; and on the host clock
+the wrapper's enqueue (mean of 200 calls, no sync), the readback of the
+largest count after a sync (mean of 50; a tree without a largest count
+reads ``counts.max()``), and ``torch.cuda.mem_get_info`` (the
+``cudaMemGetInfo`` that ``givable_bytes`` asks, mean of 200). Every result
+is one JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -134,12 +144,19 @@ def worker(tree: str, reps: int, smi: str) -> None:
 
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "reps": reps, "cases": {}}
+    cap = bs.max_dict_size()
     for name, (block, L) in CASES.items():
         dense, n = load(name)
         ref = bs.block_sweep_reference(dense, n, block, L)
         fn = lambda: bs.block_sweep(dense, n, block, L)  # noqa: E731
         out["cases"][name] = {"equal": equal(fn(), ref), "ms": events_ms(fn)}
-        del dense, ref
+        del ref
+        count = lambda: bs.block_label_counts(dense, n, block, cap)  # noqa: E731
+        want = bs.block_label_counts_reference(dense, n, block, cap)
+        out["cases"][name]["count"] = {
+            "equal": bool(torch.equal(count(), want)), "ms": events_ms(count),
+            "path": getattr(bs.block_label_counts, "path", None)}
+        del dense, want
         torch.cuda.empty_cache()
     from tissue_analysis_tpu_torch import engine
     from tissue_analysis_tpu_torch.core.stack import LabeledStack
@@ -169,6 +186,8 @@ def worker(tree: str, reps: int, smi: str) -> None:
         del st, dense
         torch.cuda.empty_cache()
 
+    out["count_split"] = count_split(bs, engine, load, LabeledStack, cap)
+
     dense, n = load(HOST_CASE)
     for _ in range(20):
         bs.block_sweep(dense, n)
@@ -180,6 +199,56 @@ def worker(tree: str, reps: int, smi: str) -> None:
     torch.cuda.synchronize()
     out["host_us_per_launch_64"] = t_host * 1e6
     print(json.dumps(out), flush=True)
+
+
+def count_split(bs, engine, load, LabeledStack, cap) -> dict:
+    """The count's share of a converged ``analyze_stack`` at voronoi-512:
+    device ms by the profiler, host µs by the clock (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from tissue_analysis_tpu_torch.utils import timing
+
+    dense, n = load("voronoi-512")
+    st = LabeledStack(dense=dense, ids=np.arange(n), voxelsize=(1.0,) * 3,
+                      background_segment=None)
+    block = (8, 16, 128)
+    engine.analyze_stack(st)  # converged L, allocator warm
+    with timing.profile_trace(os.path.join("build", "traces_ab")) as prof:
+        engine.analyze_stack(st)
+    rows = timing.device_times(prof)
+    ops = timing.device_times(prof, by_op=True)
+    kernel = [r for r in rows if "block_label_count_kernel" in r[0]]
+    split = {
+        "kernel_device_ms": sum(r[2] for r in kernel) / 1e3,
+        "max_device_ms": sum(us for k, _, us in ops if k == "aten::max") / 1e3,
+        "launches_and_copies": sum(r[1] for r in rows),
+    }
+    pair = getattr(bs, "count_block_labels", None)
+    call = ((lambda: pair(dense, n, block, cap)) if pair else
+            (lambda: bs.block_label_counts(dense, n, block, cap)))
+    read = ((lambda r: int(r.largest)) if pair else (lambda r: int(r.max())))
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    split["wrapper_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(50):
+        r = call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        read(r)
+        total += time.perf_counter() - t0
+    split["readback_host_us"] = total / 50 * 1e6
+    t0 = time.perf_counter()
+    for _ in range(200):
+        torch.cuda.mem_get_info(dense.device)
+    split["mem_get_info_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    return split
 
 
 def main() -> int:
@@ -225,14 +294,23 @@ def main() -> int:
                 f"device first {v['engine']['first_device_ms']:.3f}, converged "
                 f"{v['engine']['device_ms']:.3f} ms)"
                 for c, v in rec["cases"].items())
-            print(f"{letter} {tree}: {summary}; host {rec['host_us_per_launch_64']:.1f} us/launch",
-                  flush=True)
+            counts = ", ".join(
+                f"{c} {v['count']['ms']:.4f} ms{'' if v['count']['equal'] else ' UNEQUAL'}"
+                f"{'' if v['count']['path'] is None else ' ' + v['count']['path']}"
+                for c, v in rec["cases"].items())
+            sp = rec["count_split"]
+            print(f"{letter} {tree}: {summary}; host {rec['host_us_per_launch_64']:.1f} us/launch; "
+                  f"count {counts}; count split at voronoi-512: kernel "
+                  f"{sp['kernel_device_ms']:.4f} ms, max {sp['max_device_ms']:.4f} ms (device), "
+                  f"wrapper {sp['wrapper_host_us']:.1f} us, readback {sp['readback_host_us']:.1f} us, "
+                  f"mem_get_info {sp['mem_get_info_host_us']:.1f} us (host), "
+                  f"{sp['launches_and_copies']} launches and copies a pass", flush=True)
     if a.out:
         os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
         with open(a.out, "a") as f:
             f.write("\n".join(lines) + "\n")
     bad = [c for line in lines for c, v in json.loads(line)["cases"].items()
-           if not v["equal"]]
+           if not (v["equal"] and v["count"]["equal"])]
     return 1 if bad else 0
 
 

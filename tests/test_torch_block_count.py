@@ -189,3 +189,86 @@ def test_grid_counts_in_closed_form():
     want = (256 + 128 * (z < gz - 1) + 64 * (y < gy - 1) + 8 * (x < gx - 1))
     np.testing.assert_array_equal(want, got)
     assert got.max() == 456
+
+
+@pytest.mark.parametrize("name", list(ALL))
+def test_plain_largest_is_the_counts_max(name):
+    """``count_block_labels`` on the CPU: the plain counts and their
+    maximum, saturated as the counts are."""
+    dense, n, block = ALL[name]()
+    t = torch.from_numpy(dense)
+    exact = numpy_counts(dense, n, block)
+    for cap in (1, 4, 1 << 20):
+        got = bs.count_block_labels(t, n, block, cap)
+        assert got.largest.dtype == torch.int32 and got.largest.dim() == 0
+        assert torch.equal(got.counts, bs.block_label_counts_reference(t, n, block, cap))
+        assert int(got.largest) == min(int(exact.max()), cap + 1) == int(got.counts.max())
+
+
+def test_fit_dictionary_reads_the_largest_count(monkeypatch):
+    """``fit_dictionary`` takes L from the largest count the count returns
+    beside the counts, not from a reduction of its own over them."""
+    img = voronoi_stack((24, 40, 150), 90, seed=1, sphere=False)
+    st = LabeledStack.from_array(img, background=1, device="cpu")
+    real = bs.count_block_labels
+    m = int(real(st.dense, st.n_labels, bs.DEFAULT_BLOCK, 4096).largest)
+    assert 32 < m <= 64
+
+    def told(dense, n, block, cap):
+        got = real(dense, n, block, cap)
+        return bs.LabelCounts(got.counts, torch.tensor(200, dtype=torch.int32))
+
+    monkeypatch.setattr(engine, "count_block_labels", told)
+    d = engine._block_plan(st, "torch")
+    assert engine.fit_dictionary(d) is None and d.L == 256
+    monkeypatch.setattr(engine, "count_block_labels", real)
+    d = engine._block_plan(st, "torch")
+    assert engine.fit_dictionary(d) is None and d.L == 64
+
+
+def _view(shape, dtype, offset=0):
+    """A contiguous [Z, Y, X] tensor starting ``offset`` elements into its
+    storage."""
+    flat = torch.zeros(offset + int(np.prod(shape)), dtype=dtype)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape,dtype,block,offset,path,box", [
+    ((512, 512, 512), torch.uint16, (8, 16, 128), 0, "bulk", (9, 17, 136)),
+    ((512, 512, 512), torch.int32, (8, 16, 128), 0, "bulk", (9, 17, 132)),
+    ((1, 4096, 4096), torch.uint16, (1, 128, 128), 0, "bulk", (1, 129, 136)),
+    ((13, 37, 300), torch.int32, (8, 16, 128), 0, "bulk", (9, 17, 132)),
+    ((13, 37, 296), torch.uint16, (8, 16, 128), 0, "bulk", (9, 17, 136)),
+    ((5, 37, 300), torch.int32, (8, 16, 128), 0, "bulk", (5, 17, 132)),
+    ((13, 37, 301), torch.uint16, (8, 16, 128), 0, "direct", (9, 17, 136)),
+    ((13, 37, 300), torch.int32, (8, 16, 128), 1, "direct", (9, 17, 132)),
+    ((13, 37, 296), torch.uint16, (8, 16, 128), 4, "direct", (9, 17, 136)),
+    ((13, 37, 296), torch.uint16, (8, 16, 128), 8, "bulk", (9, 17, 136)),
+    ((20, 36, 70), torch.int32, (4, 8, 32), 0, "direct", (5, 9, 36)),
+    ((20, 36, 512), torch.uint16, (4, 8, 300), 0, "direct", (5, 9, 304)),
+])
+def test_count_plan_follows_the_stated_rule(shape, dtype, block, offset, path, box):
+    """The load path from shape, label width and pointer alone: TMA tiles
+    where the first byte and the row pitch are multiples of 16 bytes and a
+    tile's sides are at most 256, direct loads elsewhere; the shared memory
+    a CTA is the hash, the listed slots and one tile."""
+    t = _view(shape, dtype, offset)
+    plan = bs.count_plan(t, block, 2607)
+    assert (plan.path, plan.stages, plan.box) == (path, int(path == "bulk"), box)
+    assert plan.hbits == 12 and plan.nlist == 1024
+    fixed = 128 + 4 * (4096 + 1024 + 32)
+    assert plan.stage_bytes % 128 == 0
+    assert plan.smem == fixed + plan.stages * (plan.stage_bytes + 8) <= bs._MAX_SMEM
+    if path == "bulk":
+        assert plan.stage_bytes >= np.prod(box) * t.element_size()
+
+
+def test_count_plan_hash_follows_the_cap():
+    """At least 1.25 (cap + 1) slots, 64 at the least: the largest cap whose
+    hash fits shared memory is 26,213 (32,768 slots)."""
+    t = _view((8, 16, 256), torch.int32)
+    caps = (1, 50, 51, 2607, 3275, 3276, 26213)
+    assert [bs.count_plan(t, bs.DEFAULT_BLOCK, c).hbits for c in caps] == [6, 6, 7, 12, 12, 13, 15]
+    assert bs.count_plan(t, bs.DEFAULT_BLOCK, 26213).smem <= bs._MAX_SMEM
+    with pytest.raises(ValueError, match="shared-memory bound"):
+        bs.count_plan(t, bs.DEFAULT_BLOCK, 26214)

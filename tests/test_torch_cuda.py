@@ -556,10 +556,12 @@ def test_count_kernel_equals_plain_version(dev, name):
     t = torch.from_numpy(dense).to(dev)
     for cap in (4, 32, max_dict_size()):
         before = bs.block_label_counts.launches
-        k = bs.block_label_counts(t, n, block, cap)
+        k = bs.count_block_labels(t, n, block, cap)
         torch.cuda.synchronize()
         assert bs.block_label_counts.launches == before + 1
-        assert torch.equal(k, bs.block_label_counts_reference(t, n, block, cap)), cap
+        r = bs.block_label_counts_reference(t, n, block, cap)
+        assert torch.equal(k.counts, r), cap
+        assert int(k.largest) == int(r.max()), cap
 
 
 def test_count_kernel_saturates_past_its_cap(dev):
@@ -590,3 +592,113 @@ def test_dense_block_routes_with_no_sweep_on_the_card(dev):
     assert (engine.reroutes, block_sweep.launches - before,
             bs.block_label_counts.launches - counts) == (1, 0, 1)
     _assert_tables_equal(engine.analyze_stack(st, engine="chunked"), got)
+
+
+def _sizes_stack(dtype, kmax, shape=(8, 128, 16384)):
+    """One block of every dictionary size 1 .. kmax in turn (runs of equal
+    length along each block's flat order), including exactly the listed
+    slots (1,024) and one past them: more blocks than the count has CTAs,
+    so each CTA's hash is cleared and reused."""
+    arr = np.empty(shape, np.int64)
+    loc = np.arange(8 * 16 * 128).reshape(8, 16, 128)
+    gy, gx = shape[1] // 16, shape[2] // 128
+    base = 0
+    for b in range(gy * gx):
+        k = (1024, 1025)[b - 5] if b in (5, 6) else (b * 389) % kmax + 1
+        y, x = divmod(b, gx)
+        arr[:, y * 16:(y + 1) * 16, x * 128:(x + 1) * 128] = base + loc * k // (8 * 16 * 128)
+        base += k
+    return arr.astype(dtype), base
+
+
+def _count_edge_cases():
+    """name -> (dense on the CPU, n, block, the load path it must take)."""
+    def voronoi(shape, ncells, dtype):
+        st = _stack(shape, ncells, 5, "cpu")
+        return st.dense.to(dtype), st.n_labels
+
+    def ragged(dtype):
+        return voronoi((13, 37, 300), 60, dtype)
+
+    def zero_live(dtype, x):
+        """Labels 1.. and label 0 live but only on the far x face: a
+        zero-filled tile voxel read past the ragged edge would add one."""
+        d, n = voronoi((13, 37, x), 60, torch.int32)
+        d = d + 1
+        d[:, :, -1] = 0
+        return d.to(dtype), n + 1
+
+    def sizes(dtype, kmax):
+        arr, n = _sizes_stack(np.int32, kmax)
+        return torch.from_numpy(arr).to(dtype), n
+
+    return {
+        "ragged-int32": lambda: (*ragged(torch.int32), (8, 16, 128), "bulk"),
+        "ragged-uint16-x296": lambda: (*voronoi((13, 37, 296), 60, torch.uint16), (8, 16, 128), "bulk"),
+        "unaligned-x301-uint16": lambda: (*voronoi((13, 37, 301), 60, torch.uint16), (8, 16, 128),
+                                          "direct"),
+        "zero-live-ragged-int32": lambda: (*zero_live(torch.int32, 300), (8, 16, 128), "bulk"),
+        "zero-live-ragged-uint16": lambda: (*zero_live(torch.uint16, 296), (8, 16, 128), "bulk"),
+        "zero-live-unaligned-uint16": lambda: (*zero_live(torch.uint16, 301), (8, 16, 128), "direct"),
+        "2d-block-1x128x128": lambda: (*voronoi((1, 300, 336), 400, torch.uint16), (1, 128, 128),
+                                       "bulk"),
+        "sizes-1-2700-int32": lambda: (*sizes(torch.int32, 2700), (8, 16, 128), "bulk"),
+        "sizes-1-60-uint16": lambda: (*sizes(torch.uint16, 60), (8, 16, 128), "bulk"),
+    }
+
+
+COUNT_EDGES = _count_edge_cases()
+
+
+def _assert_count(t, n, block, cap, path):
+    before = bs.block_label_counts.launches
+    got = bs.count_block_labels(t, n, block, cap)
+    torch.cuda.synchronize()
+    assert bs.block_label_counts.launches == before + 1
+    assert bs.block_label_counts.path == path == bs.count_plan(t, block, cap).path
+    want = bs.block_label_counts_reference(t, n, block, cap)
+    assert torch.equal(got.counts, want)
+    assert int(got.largest) == int(want.max())
+
+
+@pytest.mark.parametrize("name", list(COUNT_EDGES))
+def test_count_kernel_edges(dev, name):
+    """The redesign's edges on both load paths: ragged far edges, label 0
+    live beside them, a row pitch TMA cannot take, the 2D block, every
+    dictionary size from 1 past the cap with hashes reused across blocks.
+    Each against the plain count, its largest count and one launch."""
+    dense, n, block, path = COUNT_EDGES[name]()
+    t = dense.to(dev)
+    for cap in (4, max_dict_size()):
+        _assert_count(t, n, block, cap, path)
+
+
+def test_count_kernel_on_slab_views(dev):
+    """Slabs of one stack as the streamed and sharded paths cut them: at a
+    z offset that is no multiple of the block (bulk: the pointer stays
+    16-byte aligned), and a view 4 bytes into the storage (direct)."""
+    arr, n = _sizes_stack(np.int32, 700)
+    t = torch.from_numpy(arr).to(dev)
+    cap = max_dict_size()
+    _assert_count(t[3:], n, (8, 16, 128), cap, "bulk")
+    _assert_count(t[5:7], n, (8, 16, 128), cap, "bulk")
+    flat = t.view(-1)
+    view = flat[1:1 + 5 * t.shape[1] * t.shape[2]].view(5, t.shape[1], t.shape[2])
+    _assert_count(view, n, (8, 16, 128), cap, "direct")
+
+
+def test_count_kernel_saturates_on_both_paths(dev):
+    """16,384 distinct labels in one block: cap + 1 on the bulk path and on
+    the direct path (a row pitch of 257 int32), and the largest count says
+    so; repeated launches leave the largest count's workspace at zero."""
+    for x in (256, 257):
+        img = np.zeros((8, 16, x), np.int32)
+        img[:, :, :128] = 1 + np.arange(8 * 16 * 128).reshape(8, 16, 128)
+        t = torch.from_numpy(img).to(dev)
+        for cap in (1, 100, max_dict_size()):
+            want = bs.block_label_counts_reference(t, 16385, (8, 16, 128), cap)
+            assert want.tolist() == [cap + 1] + [1] * (want.numel() - 1)
+            for _ in range(2):
+                got = bs.count_block_labels(t, 16385, (8, 16, 128), cap)
+                assert torch.equal(got.counts, want) and int(got.largest) == cap + 1
+            assert bs.block_label_counts.path == ("bulk" if x == 256 else "direct")

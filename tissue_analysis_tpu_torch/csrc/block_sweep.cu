@@ -10,8 +10,9 @@
 // value splits, hi/lo split columns, the hashed min/max dictionary chain,
 // extras plane packing, and v1's three globally shifted neighbour copies.
 // A second kernel, block_label_count_kernel, runs the sweep's dictionary
-// step alone and writes each block's dictionary size, so that a caller
-// picks the sweep's L (or no block sweep at all) before the sweep.
+// step alone and writes each block's dictionary size and the largest, so
+// that a caller picks the sweep's L (or no block sweep at all) before the
+// sweep.
 //
 // Contract, per voxel block of shape (bz, by, bx) in z-major block order
 // (every access is masked by coordinate, so no padded copy of the stack
@@ -79,7 +80,9 @@
 
 #include <atomic>
 #include <cstdint>
+#include <cstring>
 #include <mutex>
+#include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda link
 #include <cuda_runtime.h>
 
 namespace {
@@ -530,87 +533,406 @@ block_sweep_kernel(const T* __restrict__ dense, Params p,
   }
 }
 
+// ------------------------------------------------------------------ the count
 // The dictionary pass of block_sweep_kernel alone (no TPU counterpart: it
 // stands where the reference's engine catches a failed sweep and falls back
 // to another engine). count[b] is the number of distinct labels < n among
 // block b's voxels and the +1 z/y/x neighbours just past its far faces
 // (step 1 of the contract above), saturated at cap + 1, so count[b] > L
-// exactly where a sweep at L sets ovf[b], for every L <= cap. The hash has
-// at least 2 (cap + 1) slots; a block stops inserting once its count passes
-// cap (a block of 16,384 distinct labels would otherwise probe a full table
-// on every insert), so the table can fill only past cap.
+// exactly where a sweep at L sets ovf[b], for every L <= cap. The kernel
+// also writes the largest count, so the caller reads one int and launches
+// no reduction of its own. A block stops inserting once its count passes
+// cap (a block of 16,384 distinct labels would otherwise probe a full
+// table on every insert), so the hash of >= 1.25 (cap + 1) slots fills
+// only past cap.
+//
 // What bounds it: the bytes of the stack and of its far-face planes, read
-// once (x ~1.2 at the default block), and 4 B a block written. It reads
-// through L1 as the sweep's first step does; no tensor-core work.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-block_label_count_kernel(const T* __restrict__ dense, Params p, int cap,
-                         int* __restrict__ count_out) {
-  extern __shared__ int smem[];
-  const int n = p.n;
-  const int H = 1 << p.hbits;
-  int* hkeys = smem;       // [H]
-  int* misc = hkeys + H;   // ndistinct, full
-  const volatile int* nd = misc;
+// once (x ~1.2 at the default block), and 4 B a block written, with about
+// four integer operations a voxel. On this card the copies alone reach
+// that bound (the TMA tiles with the count skipped: PERF.md); what is left
+// is the count's own instructions a label and the shared-memory atomics
+// of blocks with many labels, so its time follows the warps an SM can hold.
+// The first design held one load in flight a warp, cleared all 8,192 hash
+// slots a block and kept 17 rows over 8 warps (27 dependent loads for one
+// warp, 18 for the others). This one:
+//   - bulk path (the stack's first byte and row pitch multiples of 16
+//     bytes): a persistent CTA copies a block's tile, its voxels and its
+//     far-face planes (box bz+1, by+1, bx+1 rounded up to 16 bytes), into
+//     shared memory with one TMA load (cp.async.bulk.tensor.3d) that a
+//     producer warp starts and an mbarrier completes; the same warp
+//     computes the next block's place, so no counting warp waits on either.
+//     A tile's voxels outside the stack are zero-filled by the copy, and 0
+//     is a live label: every read stays masked by the block's Geo extents.
+//     One tile a CTA, so that a CTA is ~62 KB (uint16) or ~102 KB (int32)
+//     and three or two CTAs share an SM; their copies and counts overlap.
+//   - the tile is counted as the sweep's lanes walk device memory: a lane
+//     walks 16 bytes of x (8 uint16 or 4 int32 labels) up through z, and
+//     inserts a label that differs from the voxel on its left and from
+//     the last live label it saw; a row equal to the row below adds
+//     nothing. The 17 rows of y of a block are two to a warp over 9 warps
+//     (uint16), or one to a warp over 18 (int32).
+//   - direct path (other stacks, which TMA cannot address): the sweep's
+//     step 1, one 8- or 16-byte load a lane and row, 9 warps, and a vote
+//     a row on whether the block has passed cap.
+//   - the per-block reset follows the labels: an insert lists the slot it
+//     filled and the block clears those (all slots only past nlist labels).
+//   - the largest count: thread 0 keeps its CTA's, adds it to a two-int
+//     workspace by atomicMax, and the last CTA to take a ticket writes it
+//     out and resets the workspace for the next launch.
+// Measured and not kept (scripts/torch_count_variants.py, H100 80GB HBM3
+// at 700 W, voronoi-512 uint16, where this design takes 0.217 ms, the
+// first 0.373, and the copies alone 0.101; PERF.md): a ring of two tiles a
+// CTA 0.243 ms and of up to four beside a hash of 2^13 slots 0.422 (one
+// CTA an SM: the copies were in flight but the count ran on 9-18 warps an
+// SM); one tile beside that hash 0.278; direct loads where TMA could run
+// 0.291; int32 tiles counted by 288 threads 0.335 ms at int32 (576: 0.276).
+// Slower than the first design, in builds of earlier sources (no times
+// kept): the tile's rows split evenly over threads, 16 bytes a thread
+// tested against the row below (more instructions a label, and a warp's
+// lanes diverging into the per-label test); the direct path loading 9 rows
+// a lane before inserting (more registers, fewer CTAs an SM); a check of
+// each row against the row one y back; testing whether a key is present
+// before reading the block's count.
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+struct CountPlan {
+  int cap;          // counts saturate at cap + 1
+  int hbits;        // hash of 2^hbits >= 1.25 (cap + 1) slots
+  int nlist;        // filled slots listed a block (all cleared past this)
+  int stages;       // label tiles a CTA on the bulk path; 0 = direct loads
+  int box_z, box_y, box_x;  // a tile: the block and its far-face planes
+  int stage_bytes;  // bytes from one tile to the next, a multiple of 128
+};
+
+// Counting threads a CTA: 9 warps (the 17 rows of y of a default block,
+// two to a warp for uint16 tiles and on the direct path), 18 for int32
+// tiles (a row of 128 int32 is a warp's 32 lanes of 16 bytes).
+template <typename T, bool kBulk>
+__host__ __device__ constexpr int count_threads() {
+  return kBulk && sizeof(T) == 4 ? 576 : 288;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.b32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Copy the tile of the block at (ox, oy, oz) into dst; bytes land on bar.
+__device__ __forceinline__ void copy_tile(const CUtensorMap* tmap, unsigned long long* bar,
+                                           void* dst, int bytes, int ox, int oy, int oz) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(ox), "r"(oy), "r"(oz), "r"(b)
+      : "memory");
+}
+
+// dict_insert for the count: cnt = {distinct, full}. A slot is read before
+// any atomic (most keys are in the table already); the first nlist slots
+// filled are listed, so that the block clears only those.
+__device__ __forceinline__ void count_insert(int* keys, int* listed, int nlist, int key,
+                                             int hbits, int* cnt) {
+  const volatile int* vkeys = keys;
+  const unsigned mask = (1u << hbits) - 1u;
+  unsigned h = hash_pos(key, hbits);
+  for (unsigned probe = 0; probe <= mask; ++probe) {
+    const int k = vkeys[h];
+    if (k == key) return;
+    if (k == kEmpty) {
+      const int prev = atomicCAS(&keys[h], kEmpty, key);
+      if (prev == kEmpty) {
+        const int i = atomicAdd(&cnt[0], 1);
+        if (i < nlist) listed[i] = static_cast<int>(h);
+        return;
+      }
+      if (prev == key) return;
+    }
+    h = (h + 1u) & mask;
+  }
+  cnt[1] = 1;
+}
+
+// The insert of label a by one thread: not again if it is the label the
+// thread inserted last in this block, nor once the block's count is past
+// cap.
+struct Inserter {
+  int* hkeys;
+  int* listed;
+  int* bc;
+  int nlist, hbits, cap;
+  int last;
+
+  __device__ __forceinline__ void operator()(int a) {
+    if (a == last || *reinterpret_cast<const volatile int*>(bc) > cap) return;
+    count_insert(hkeys, listed, nlist, a, hbits, bc);
+    last = a;
+  }
+};
+
+// label k of 16 bytes of labels held in registers
+template <typename T>
+__device__ __forceinline__ int label_of(const uint4& w, int k) {
+  const int i = sizeof(T) == 2 ? k >> 1 : k;
+  const unsigned word = i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+  return sizeof(T) == 2 ? static_cast<int>((word >> (16 * (k & 1))) & 0xffffu)
+                        : static_cast<int>(word);
+}
+
+// Bulk path: insert one block's labels from its tile in shared memory. A
+// unit is the column of rows (lz = 0 .. tz-1) at one y of the block (its
+// +y row included) and one x pass of seg lanes x 16 bytes (8 uint16 or 4
+// int32 labels a lane); seg is 8, 16 or 32 lanes, so that one warp walks
+// 32 / seg units at once. A lane walks its column up through z, as the
+// sweep's lanes walk device memory, and inserts a label that is live and
+// differs from the voxel on its left (the previous lane's last label, by a
+// shuffle) and from the last live label it saw (inserted by it, or equal
+// to a voxel inserted by the same rule). A row whose 16 bytes equal the
+// row below adds nothing. Then the threads take the +x column of the
+// block's own rows, a voxel each.
+template <typename T>
+__device__ __forceinline__ void count_tile(const T* tile, const Geo& g, const Params& p,
+                                           const CountPlan& c, Inserter& ins) {
+  constexpr int kThr = count_threads<T, true>();
+  constexpr int V = 16 / sizeof(T);
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int bslots = (p.bx + V - 1) / V;
+  const int seg = bslots <= 8 ? 8 : bslots <= 16 ? 16 : 32;
+  const int sl = lane & (seg - 1);
+  const int per_warp = 32 / seg;
+  const int npass = (g.ex + seg * V - 1) / (seg * V);
+  const int units = g.ty * npass;
+  const int py = c.box_x;
+  const int pz = c.box_y * c.box_x;
+  for (int u0 = warp * per_warp; u0 < units; u0 += kThr / 32 * per_warp) {
+    const int u = u0 + lane / seg;
+    const int ly = u / npass;
+    const int x0 = ((u - ly * npass) * seg + sl) * V;
+    const bool col = u < units && x0 < g.ex;
+    const int nv = col ? min(V, g.ex - x0) : 0;
+    const T* q = tile + ly * py + x0;
+    int last = kEmpty;
+    uint4 below = make_uint4(0u, 0u, 0u, 0u);
+    for (int lz = 0; lz < g.tz; ++lz, q += pz) {
+      // a block past cap stops (the whole warp, by a vote)
+      if (__any_sync(kFull, *reinterpret_cast<const volatile int*>(ins.bc) > ins.cap)) break;
+      const bool row = col && !(lz == p.bz && ly == p.by);  // that row is never a neighbour
+      uint4 w = below;
+      if (row) w = *reinterpret_cast<const uint4*>(q);
+      int prev = __shfl_up_sync(kFull, label_of<T>(w, V - 1), 1, seg);
+      if (sl == 0) prev = row && x0 > 0 ? static_cast<int>(q[-1]) : kEmpty;
+      const bool same = lz > 0 &&
+          ((w.x ^ below.x) | (w.y ^ below.y) | (w.z ^ below.z) | (w.w ^ below.w)) == 0u;
+      if (row && !same) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int v = label_of<T>(w, k);
+          if (k < nv && live(v, p.n)) {
+            if (v != prev && v != last) ins(v);
+            last = v;
+          }
+          prev = v;
+        }
+      }
+      below = w;
+    }
+  }
+  // the +x column of the block's own rows, a voxel a thread
+  const int nhalo = g.tx > g.ex ? g.ez * g.ey : 0;
+  for (int i = t; i < nhalo; i += kThr) {
+    const int hz = i / g.ey;
+    const int hy = i - hz * g.ey;
+    const T* h = tile + hz * pz + hy * py + g.ex;
+    const int v = static_cast<int>(h[0]);
+    if (live(v, p.n) && v != static_cast<int>(h[-1]) && !(hz > 0 && v == static_cast<int>(h[-pz])))
+      ins(v);
+  }
+}
+
+// Direct path: the same inserts from device memory, for a stack that TMA
+// cannot address. A warp walks the rows of one y of the block up through z,
+// one 8- or 16-byte load a lane and row (block_sweep_kernel's step 1), and
+// votes once a row on whether the block has passed cap; the +x column is
+// one voxel a lane of the warp, for the rows of its y.
+template <typename T>
+__device__ __forceinline__ void count_direct(const T* dense, const Geo& g, const Params& p,
+                                             Inserter& ins) {
+  constexpr int kWarpsD = count_threads<T, false>() / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int chunk = p.chunk;
   const long long sz = static_cast<long long>(p.Y) * p.X;
-
-  for (long long b = blockIdx.x; b < p.B; b += gridDim.x) {
-    const Geo g = block_geo(p, b);
-    const T* base = dense + g.oz * sz + static_cast<long long>(g.oy) * p.X + g.ox;
-    auto row = [&](int lz, int ly) {
-      return base + lz * sz + static_cast<long long>(ly) * p.X;
-    };
-    const int npass = (g.ex + 32 * chunk - 1) / (32 * chunk);
-    for (int i = tid; i < H; i += kThreads) hkeys[i] = kEmpty;
-    if (tid == 0) {
-      misc[0] = 0;
-      misc[1] = 0;
-    }
-    __syncthreads();
-
-    // the rows and the +x column of block_sweep_kernel's step 1; a warp
-    // stops (all lanes at once) when the count has passed cap
-    {
-      int last = kEmpty;
-      bool over = false;
-      for (int ly = warp; ly < g.ty && !over; ly += kWarps) {
-        for (int pass = 0; pass < npass && !over; ++pass) {
-          const int x0 = (pass * 32 + lane) * chunk;
-          for (int lz = 0; lz < g.tz; ++lz) {
-            if (lz == p.bz && ly == p.by) continue;  // never a neighbour
-            over = __any_sync(kFull, *nd > cap);
-            if (over) break;
-            int v[4];
-            load_chunk(row(lz, ly), x0, chunk, g.ex, v);
-            const int tail =
-                chunk == 4 ? v[3] : chunk == 3 ? v[2] : chunk == 2 ? v[1] : v[0];
-            const int left = __shfl_up_sync(kFull, tail, 1);
+  const T* base = dense + g.oz * sz + static_cast<long long>(g.oy) * p.X + g.ox;
+  auto row = [&](int lz, int ly) {
+    return base + lz * sz + static_cast<long long>(ly) * p.X;
+  };
+  const volatile int* nd = ins.bc;
+  const int npass = (g.ex + 32 * chunk - 1) / (32 * chunk);
+  int last = kEmpty;
+  for (int ly = warp; ly < g.ty; ly += kWarpsD) {
+    for (int pass = 0; pass < npass; ++pass) {
+      const int x0 = (pass * 32 + lane) * chunk;
+      for (int lz = 0; lz < g.tz; ++lz) {
+        if (lz == p.bz && ly == p.by) continue;  // never a neighbour
+        if (__any_sync(kFull, *nd > ins.cap)) return;
+        int v[4];
+        load_chunk(row(lz, ly), x0, chunk, g.ex, v);
+        const int tail = chunk == 4 ? v[3] : chunk == 3 ? v[2] : chunk == 2 ? v[1] : v[0];
+        int prev = __shfl_up_sync(kFull, tail, 1);
+        if (lane == 0) prev = kEmpty;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int prev =
-                  c == 0 ? (lane == 0 ? kEmpty : left) : v[c > 0 ? c - 1 : 0];
-              if (live(v[c], n) && v[c] != prev && v[c] != last)
-                dict_insert(hkeys, v[c], p.hbits, &misc[0], &misc[1]);
-              if (live(v[c], n)) last = v[c];
-            }
+        for (int k = 0; k < 4; ++k) {
+          if (live(v[k], p.n)) {
+            if (v[k] != prev && v[k] != last) ins(v[k]);
+            last = v[k];
           }
-        }
-        if (!over && lane == 0 && g.tx > g.ex && ly < g.ey) {
-          for (int lz = 0; lz < g.ez && *nd <= cap; ++lz) {
-            const int v = __ldg(row(lz, ly) + g.ex);
-            if (live(v, n)) dict_insert(hkeys, v, p.hbits, &misc[0], &misc[1]);
-          }
+          prev = v[k];
         }
       }
     }
+    if (g.tx > g.ex && ly < g.ey) {
+      for (int lz = lane; lz < g.ez; lz += 32) {
+        const T* q = row(lz, ly) + g.ex;
+        const int a = __ldg(q);
+        if (live(a, p.n) && a != static_cast<int>(__ldg(q - 1))) ins(a);
+      }
+    }
+  }
+}
+
+// count_threads() count; on the bulk path one more warp starts the tile
+// copies and computes the next block's place, so that no counting warp
+// waits on that work.
+template <typename T, bool kBulk>
+__global__ void __launch_bounds__(count_threads<T, kBulk>() + (kBulk ? 32 : 0))
+block_label_count_kernel(const T* __restrict__ dense, Params p, CountPlan c,
+                         const __grid_constant__ CUtensorMap tmap,
+                         int* __restrict__ count_out, int* __restrict__ ws) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // ring [stages][stage_bytes] at a 128-byte boundary, mbarriers [stages],
+  // hash [H], listed slots [nlist], counts {distinct, full} by block parity
+  // and two blocks' Geo (32 ints in all). The boundary is an offset into
+  // smem_raw, so that every pointer stays a shared-memory one (LDS, ATOMS):
+  // a pointer rounded through an integer compiles to generic accesses.
+  unsigned char* ring = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(ring + static_cast<size_t>(c.stages) * c.stage_bytes);
+  int* hkeys = reinterpret_cast<int*>(bars + c.stages);
+  const int H = 1 << c.hbits;
+  int* listed = hkeys + H;
+  int* cnt = listed + c.nlist;
+  Geo* geo = reinterpret_cast<Geo*>(cnt + 4);  // [2]: the places of blocks by parity
+
+  constexpr int kCount = count_threads<T, kBulk>();
+  constexpr int kBlock = kCount + (kBulk ? 32 : 0);
+  const int tid = threadIdx.x;
+  const int producer = kBulk ? kCount : 0;  // the thread that copies and places
+  const int B = static_cast<int>(p.B);
+  const int tile_bytes = c.box_z * c.box_y * c.box_x * static_cast<int>(sizeof(T));
+  for (int i = tid; i < H; i += kBlock) hkeys[i] = kEmpty;
+  if (tid < 4) cnt[tid] = 0;
+  if (tid == producer) {
+    geo[0] = block_geo(p, blockIdx.x);
+    if constexpr (kBulk) {
+      for (int s = 0; s < c.stages; ++s) mbar_init(&bars[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  __syncthreads();
+  if constexpr (kBulk) {
+    if (tid == producer) {
+      for (int s = 0; s < c.stages; ++s) {
+        const int b = blockIdx.x + s * gridDim.x;
+        if (b >= B) break;
+        const Geo g = block_geo(p, b);
+        copy_tile(&tmap, &bars[s], ring + static_cast<size_t>(s) * c.stage_bytes, tile_bytes,
+                   g.ox, g.oy, g.oz);
+      }
+    }
+  }
+
+  int best = 0;  // thread 0: the largest count of this CTA's blocks
+  int k = 0;     // the CTA's k-th block
+  for (int b = blockIdx.x; b < B; b += gridDim.x, ++k) {
+    const Geo g = geo[k & 1];
+    int* bc = cnt + 2 * (k & 1);
+    if (tid == producer) {
+      // the next block's place (that buffer was last read before the
+      // previous barrier), and the tile of the block S on from the previous
+      // one into the stage it freed, while the other threads count
+      if (b + static_cast<int>(gridDim.x) < B) geo[(k + 1) & 1] = block_geo(p, b + gridDim.x);
+      if constexpr (kBulk) {
+        const int nb = b + (c.stages - 1) * gridDim.x;
+        if (k > 0 && nb < B) {
+          const int s = (k - 1) % c.stages;
+          const Geo gn = block_geo(p, nb);
+          copy_tile(&tmap, &bars[s], ring + static_cast<size_t>(s) * c.stage_bytes, tile_bytes,
+                     gn.ox, gn.oy, gn.oz);
+        }
+      }
+    }
+    Inserter ins{hkeys, listed, bc, c.nlist, c.hbits, c.cap, kEmpty};
+    if constexpr (kBulk) {
+      const int s = k % c.stages;
+      if (tid < kCount) {
+        mbar_wait(&bars[s], (k / c.stages) & 1);
+        count_tile<T>(reinterpret_cast<const T*>(ring + static_cast<size_t>(s) * c.stage_bytes),
+                      g, p, c, ins);
+      }
+    } else {
+      count_direct<T>(dense, g, p, ins);
+    }
     __syncthreads();
-    if (tid == 0) count_out[b] = (misc[0] > cap || misc[1]) ? cap + 1 : misc[0];
+    // every insert of block b is done, and so is every read of its tile
+    const int nd = bc[0];
+    if (tid == 0) {
+      const int got = (nd > c.cap || bc[1]) ? c.cap + 1 : nd;
+      count_out[b] = got;
+      best = max(best, got);
+      int* other = cnt + 2 * ((k + 1) & 1);  // last read before the previous barrier
+      other[0] = 0;
+      other[1] = 0;
+    }
+    if (nd <= c.nlist) {
+      for (int i = tid; i < nd; i += kBlock) hkeys[listed[i]] = kEmpty;
+    } else {
+      for (int i = tid; i < H; i += kBlock) hkeys[i] = kEmpty;
+    }
     __syncthreads();
+  }
+
+  // the largest count: the last CTA to take a ticket writes it and resets
+  // the workspace {ticket, max} for the next launch
+  if (tid == 0) {
+    atomicMax(&ws[1], best);
+    __threadfence();
+    const unsigned t = atomicAdd(reinterpret_cast<unsigned*>(&ws[0]), 1u);
+    if (t == gridDim.x - 1) {
+      __threadfence();
+      count_out[B] = atomicExch(&ws[1], 0);
+      atomicExch(&ws[0], 0);
+    }
   }
 }
 
@@ -626,29 +948,34 @@ long long smem_bytes(int L) {
   return (2 * H + 16LL * L + 2) * static_cast<long long>(sizeof(int));
 }
 
-// bytes of the count kernel's shared state: hash of >= 2 (cap + 1) slots,
-// two counters
-long long count_smem_bytes(int cap) {
-  return ((1LL << hash_bits(cap + 1)) + 2) * static_cast<long long>(sizeof(int));
-}
-
 // ---------------------------------------------------------------- host side
-enum Kind { kSweep = 0, kCount = 1 };
+// Kernels by index: 0/1 the sweep (uint16/int32); 2/3 the count by direct
+// loads, 4/5 the count by tiles (uint16/int32).
+constexpr int kKernels = 6;
 
-const void* kernel_of(int kind, int is_int32) {
-  if (kind == kCount) {
-    return is_int32
-               ? reinterpret_cast<const void*>(&block_label_count_kernel<int>)
-               : reinterpret_cast<const void*>(&block_label_count_kernel<unsigned short>);
+const void* kernel_of(int fn) {
+  switch (fn) {
+    case 0: return reinterpret_cast<const void*>(&block_sweep_kernel<unsigned short>);
+    case 1: return reinterpret_cast<const void*>(&block_sweep_kernel<int>);
+    case 2: return reinterpret_cast<const void*>(&block_label_count_kernel<unsigned short, false>);
+    case 3: return reinterpret_cast<const void*>(&block_label_count_kernel<int, false>);
+    case 4: return reinterpret_cast<const void*>(&block_label_count_kernel<unsigned short, true>);
+    default: return reinterpret_cast<const void*>(&block_label_count_kernel<int, true>);
   }
-  return is_int32
-             ? reinterpret_cast<const void*>(&block_sweep_kernel<int>)
-             : reinterpret_cast<const void*>(&block_sweep_kernel<unsigned short>);
 }
 
-// per kernel and instantiation (2 * kind + is_int32), a bit per device
-// whose attribute is set
-std::atomic<unsigned long long> g_attr_set[4];
+int threads_of(int fn) {
+  switch (fn) {
+    case 0: case 1: return kThreads;
+    case 2: return count_threads<unsigned short, false>();
+    case 3: return count_threads<int, false>();
+    case 4: return count_threads<unsigned short, true>() + 32;
+    default: return count_threads<int, true>() + 32;
+  }
+}
+
+// per kernel, a bit per device whose attribute is set
+std::atomic<unsigned long long> g_attr_set[kKernels];
 std::mutex g_cache_mu;
 int g_sms[kMaxDevices];
 struct OccEntry {
@@ -657,15 +984,14 @@ struct OccEntry {
 OccEntry g_occ[64];
 int g_nocc = 0;
 
-// The SMs of device dev and the CTAs an SM holds at smem bytes. Sets the
-// dynamic shared-memory ceiling of the instantiation once per device; both
-// answers are cached.
-cudaError_t occupancy(int dev, int kind, int is_int32, int smem, int* ctas, int* sms) {
-  const int fn = 2 * kind + is_int32;
+// The SMs of device dev and the CTAs an SM holds of kernel fn at smem
+// bytes. Sets the kernel's dynamic shared-memory ceiling once per device;
+// both answers are cached.
+cudaError_t occupancy(int dev, int fn, int smem, int* ctas, int* sms) {
   const unsigned long long bit = 1ULL << dev;
   if (!(g_attr_set[fn].load(std::memory_order_acquire) & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel_of(kind, is_int32), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        kernel_of(fn), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     g_attr_set[fn].fetch_or(bit, std::memory_order_release);
   }
@@ -685,7 +1011,7 @@ cudaError_t occupancy(int dev, int kind, int is_int32, int smem, int* ctas, int*
     }
   }
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, kernel_of(kind, is_int32), kThreads, static_cast<size_t>(smem));
+      ctas, kernel_of(fn), threads_of(fn), static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
   if (*ctas < 1) return cudaErrorInvalidConfiguration;
   g_occ[g_nocc % 64] = OccEntry{dev, fn, smem, *ctas};
@@ -713,21 +1039,47 @@ Params make_params(int Z, int Y, int X, int bz, int by, int bx, int L, int n,
   return p;
 }
 
-// Persistent CTAs of kernel (kind, is_int32): as many as fit an SM at smem
-// bytes times the SMs, no more than the blocks. Returns cudaGetLastError().
-int launch(int kind, int is_int32, long long B, int smem, void** args, void* stream) {
+// Persistent CTAs of kernel fn: as many as fit an SM at smem bytes times
+// the SMs, no more than the blocks. Returns cudaGetLastError().
+int launch(int fn, long long B, int smem, void** args, void* stream) {
   int dev = 0, ctas = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  err = occupancy(dev, kind, is_int32, smem, &ctas, &sms);
+  err = occupancy(dev, fn, smem, &ctas, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long want = static_cast<long long>(ctas) * sms;
   const unsigned grid = static_cast<unsigned>(B < want ? B : want);
-  err = cudaLaunchKernel(kernel_of(kind, is_int32), dim3(grid), dim3(kThreads), args,
+  err = cudaLaunchKernel(kernel_of(fn), dim3(grid), dim3(threads_of(fn)), args,
                          static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
+// entry-point query (so the library needs no -lcuda); null where libcuda
+// has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace
@@ -750,23 +1102,58 @@ int ta_block_sweep(const void* dense, int is_int32, int Z, int Y, int X,
   if (p.B == 0) return 0;
   void* args[] = {static_cast<void*>(&dense), &p, &ids, &mom, &gmin, &gmax,
                   &faces, &ovf};
-  return launch(kSweep, is_int32, p.B, static_cast<int>(smem_bytes(L)), args, stream);
+  return launch(is_int32, p.B, static_cast<int>(smem_bytes(L)), args, stream);
 }
 
-// Dynamic shared memory (bytes) of one block's state in the count kernel.
-long long ta_block_label_count_smem_bytes(int cap) { return count_smem_bytes(cap); }
-
-// dense as for ta_block_sweep; count int32 [B] (allocated by the caller) gets
-// each block's dictionary size, saturated at cap + 1. Launches on `stream`,
-// does not synchronise; returns cudaGetLastError().
+// dense as for ta_block_sweep. The plan (cap, hash bits, listed slots, ring
+// stages with 0 for direct loads, tile box z/y/x, stage bytes, and the
+// dynamic shared memory smem) comes from the caller. count int32 [B + 1]
+// (allocated by the caller) gets each block's dictionary size, saturated at
+// cap + 1, then the largest of them; ws int32 [2] is the caller's
+// workspace for that largest count, zero before the first launch on a
+// stream and left zero by every launch. A tile plan needs dense and its
+// row pitch X * elsize at multiples of 16 bytes and a box of at most 256 a
+// side, or it returns cudaErrorInvalidValue. Launches on `stream`, does not
+// synchronise; returns cudaGetLastError().
 int ta_block_label_count(const void* dense, int is_int32, int Z, int Y, int X,
-                         int bz, int by, int bx, int cap, int n, void* count,
-                         void* stream) {
-  Params p = make_params(Z, Y, X, bz, by, bx, cap, n, hash_bits(cap + 1));
+                         int bz, int by, int bx, int n, int cap, int hbits, int nlist,
+                         int stages, int box_z, int box_y, int box_x, int stage_bytes,
+                         int smem, void* count, void* ws, void* stream) {
+  Params p = make_params(Z, Y, X, bz, by, bx, cap, n, hbits);
   if (p.B == 0) return 0;
-  void* args[] = {static_cast<void*>(&dense), &p, &cap, &count};
-  return launch(kCount, is_int32, p.B, static_cast<int>(count_smem_bytes(cap)), args,
-                stream);
+  // the kernel's layout: ring at a 128-byte boundary, mbarriers, hash,
+  // listed slots, 32 ints
+  const long long layout = 128 + static_cast<long long>(stages) * (stage_bytes + 8) +
+                           4LL * ((1LL << hbits) + nlist + 32);
+  if (p.B >= (1LL << 31) || smem < layout) return static_cast<int>(cudaErrorInvalidValue);
+  CountPlan c{cap, hbits, nlist, stages, box_z, box_y, box_x, stage_bytes};
+  const long long es = is_int32 ? 4 : 2;
+  CUtensorMap tmap;
+  std::memset(&tmap, 0, sizeof(tmap));
+  if (stages > 0) {
+    if ((reinterpret_cast<uintptr_t>(dense) & 15) != 0 || (X * es) % 16 != 0 ||
+        box_z < 1 || box_y < 1 || box_x < 1 || box_z > 256 || box_y > 256 || box_x > 256 ||
+        (box_x * es) % 16 != 0 || stage_bytes % 128 != 0 ||
+        stage_bytes < box_z * box_y * box_x * es)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(X), static_cast<cuuint64_t>(Y),
+                                static_cast<cuuint64_t>(Z)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(X * es),
+                                   static_cast<cuuint64_t>(Y) * X * es};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_x), static_cast<cuuint32_t>(box_y),
+                               static_cast<cuuint32_t>(box_z)};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUresult r = encode(
+        &tmap, is_int32 ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_UINT16, 3,
+        const_cast<void*>(dense), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void* args[] = {static_cast<void*>(&dense), &p, &c, &tmap, &count, &ws};
+  return launch(2 + (stages > 0 ? 2 : 0) + is_int32, p.B, smem, args, stream);
 }
 
 }  // extern "C"

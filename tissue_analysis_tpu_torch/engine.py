@@ -63,9 +63,9 @@ from tissue_analysis_tpu_torch.ops import combine, segred, stencil
 from tissue_analysis_tpu_torch.ops.block_sweep import (
     DEFAULT_BLOCK,
     PLAIN_MAX_DICT,
-    block_label_counts,
     block_sweep,
     block_sweep_reference,
+    count_block_labels,
     max_dict_size,
 )
 from tissue_analysis_tpu_torch.utils import timing
@@ -241,9 +241,10 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
     """``"auto"``'s exact test of a block sweep ``d`` before its launch.
 
     One count of every block's dictionary labels
-    (:func:`~tissue_analysis_tpu_torch.ops.block_sweep.block_label_counts`,
+    (:func:`~tissue_analysis_tpu_torch.ops.block_sweep.count_block_labels`,
     the kernel on a card, saturated past the engine's bound) and one
-    readback of its largest value m. ``d.L`` becomes the smallest
+    readback of the largest count m, which the kernel writes beside the
+    counts (no reduction is launched for it). ``d.L`` becomes the smallest
     ``d.L · 2^k ≥ m`` up to the engine's bound: the size that
     :func:`finish_stack`'s overflow reruns would converge to, so the sweep
     runs once. Returns None, or why no block sweep can take the stack: a
@@ -257,17 +258,17 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
     name = "cuda" if d.sweep is block_sweep else "torch"
     bound = dict_bound(name)
     with timing.stage("device count (block labels)", int(np.prod(stack.shape)), stack.device):
-        counts = block_label_counts(stack.dense, n, d.block, bound)
-        m = int(counts.max())
-    where = (f"a {tuple(d.block)} block of this {tuple(d.image.shape)} image (one of "
-             f"{counts.numel()})")
+        counted = count_block_labels(stack.dense, n, d.block, bound)
+        m = int(counted.largest)
+    B = counted.counts.numel()
+    where = f"a {tuple(d.block)} block of this {tuple(d.image.shape)} image (one of {B})"
     if m > bound:
         return (f"{where} holds more than {bound:,} dictionary labels, the largest "
                 f"dictionary L={bound} the {name!r} block engine takes")
     L = d.L
     while L < m:
         L = min(2 * L, bound)
-    need = sweep_bytes(counts.numel(), L)
+    need = sweep_bytes(B, L)
     give = givable_bytes(stack.device, held + need)
     if give is not None and held + need > give:
         return (f"{where} holds {m:,} dictionary labels, so the {name!r} block "

@@ -30,9 +30,18 @@ or int32) at run time and serves both. For every block of shape ``block``
 :func:`block_label_counts` is the dictionary step alone: int32 ``[B]``, each
 block's number of dictionary labels, saturated at ``cap + 1``, so that
 ``count[b] > L`` exactly where a sweep at ``L`` sets ``ovf[b]`` (for L ≤
-cap). It has no TPU counterpart: the engine reads it before a sweep to pick
-the sweep's L, or no block sweep at all, where the reference's engine
-catches a failed sweep and falls back.
+cap). :func:`count_block_labels` returns those counts and the largest of
+them (:class:`LabelCounts`), which the kernel writes itself, so a caller
+reads one int and launches nothing more. It has no TPU counterpart: the
+engine reads the largest count before a sweep to pick the sweep's L, or no
+block sweep at all, where the reference's engine catches a failed sweep and
+falls back. On a card the count takes one of two load paths by a rule on
+shape and pointer (:func:`count_plan`): ``"bulk"`` copies each block's
+labels and far-face planes into a shared-memory tile by TMA (one tile a
+CTA, two or three CTAs an SM) where the stack's first byte and its row
+pitch are multiples of 16 bytes, and ``"direct"`` loads them from device
+memory elsewhere. Both are one kernel; neither is a fallback after a
+failure.
 
 :func:`block_sweep` launches the CUDA kernel (``csrc/block_sweep.cu``) for a
 CUDA tensor and runs :func:`block_sweep_reference` for a CPU tensor; it
@@ -61,12 +70,16 @@ import torch
 
 __all__ = [
     "IMAX",
+    "CountPlan",
+    "LabelCounts",
     "SweepOut",
     "block_label_counts",
     "block_label_counts_reference",
     "block_sweep",
     "block_sweep_reference",
     "build_kernel",
+    "count_block_labels",
+    "count_plan",
     "max_dict_size",
     "PLAIN_MAX_DICT",
 ]
@@ -77,6 +90,8 @@ _DTYPES = (torch.uint16, torch.int32)
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 #: dictionary bound of the plain version: above the kernel's (~2600)
 PLAIN_MAX_DICT = 4096
+_COUNT_STAGES = 1  # label tiles a CTA holds: one, so that 2-3 CTAs share an SM
+_COUNT_LIST = 1024  # hash slots a block lists as it fills them
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "block_sweep.cu")
@@ -169,10 +184,8 @@ def build_kernel() -> ctypes.CDLL:
         lib.ta_block_sweep.restype = ci
         lib.ta_block_sweep_smem_bytes.argtypes = [ci]
         lib.ta_block_sweep_smem_bytes.restype = ctypes.c_longlong
-        lib.ta_block_label_count.argtypes = [vp] + [ci] * 9 + [vp] * 2
+        lib.ta_block_label_count.argtypes = [vp] + [ci] * 17 + [vp] * 3
         lib.ta_block_label_count.restype = ci
-        lib.ta_block_label_count_smem_bytes.argtypes = [ci]
-        lib.ta_block_label_count_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
         return lib
 
@@ -259,42 +272,133 @@ def _launch(lib, dense, n, block, L) -> SweepOut:
 block_sweep.launches = 0
 
 
-def block_label_counts(dense: torch.Tensor, n: int, block, cap: int) -> torch.Tensor:
-    """Each block's number of dictionary labels, saturated at ``cap + 1``:
-    int32 ``[B]`` (see the module docstring).
+class LabelCounts(NamedTuple):
+    """Each block's dictionary size, saturated at ``cap + 1`` (int32
+    ``[B]``), and the largest of them (int32, 0-d; 0 for no block)."""
 
-    A CUDA tensor launches the hand-written count kernel (or raises); a CPU
-    tensor runs :func:`block_label_counts_reference`.
+    counts: torch.Tensor
+    largest: torch.Tensor
+
+
+class CountPlan(NamedTuple):
+    """How the count kernel runs on a stack: the load path, the hash of
+    ``2**hbits`` slots, ``nlist`` slots listed a block, and on the bulk
+    path ``stages`` tiles of ``box`` (z, y, x) labels, ``stage_bytes``
+    apart; ``smem`` bytes of dynamic shared memory a CTA."""
+
+    path: str
+    cap: int
+    hbits: int
+    nlist: int
+    stages: int
+    box: Tuple[int, int, int]
+    stage_bytes: int
+    smem: int
+
+
+def count_plan(dense: torch.Tensor, block, cap: int) -> CountPlan:
+    """The count kernel's plan for ``dense`` (any device: the rule reads
+    only shape, label width and pointer).
+
+    The hash holds ≥ 1.25 (cap + 1) slots (≥ 64); past the shared memory a
+    CTA may use that raises ``ValueError``. A tile is the block and its +1
+    far-face planes, the x side rounded up to 16 bytes; a CTA holds one
+    tile (``stages``), beside the hash. The path is ``"bulk"`` (TMA tiles)
+    where ``dense.data_ptr()`` and the row pitch ``X · elsize`` are
+    multiples of 16 bytes, every side of the tile is at most 256 and the
+    tile fits beside the hash; ``"direct"`` (loads from device memory)
+    otherwise."""
+    cap = int(cap)
+    bz, by, bx = (int(b) for b in block)
+    Z, Y, X = (int(s) for s in dense.shape)
+    es = dense.element_size()
+    hbits = max(6, (-(-5 * (cap + 1) // 4) - 1).bit_length())
+    nlist = min(cap + 1, _COUNT_LIST)
+    # 128 bytes to align the ring, then hash, listed slots, 32 ints (two
+    # counts and a block's place, twice)
+    fixed = 128 + 4 * ((1 << hbits) + nlist + 32)
+    if fixed > _MAX_SMEM:
+        raise ValueError(
+            f"count cap={cap} exceeds the count kernel's shared-memory bound "
+            f"({fixed:,} bytes of hash a CTA, {_MAX_SMEM:,} available)"
+        )
+    v = 16 // es
+    box = (min(bz + 1, Z), min(by + 1, Y), -(-min(bx + 1, X) // v) * v)
+    stage_bytes = -(-(box[0] * box[1] * box[2] * es) // 128) * 128
+    stages = min(_COUNT_STAGES, (_MAX_SMEM - fixed) // (stage_bytes + 8))
+    if (dense.data_ptr() % 16 == 0 and X * es % 16 == 0 and max(box) <= 256
+            and stages >= 1):
+        smem = fixed + stages * (stage_bytes + 8)
+        return CountPlan("bulk", cap, hbits, nlist, stages, box, stage_bytes, smem)
+    return CountPlan("direct", cap, hbits, nlist, 0, box, 0, fixed)
+
+
+def count_block_labels(dense: torch.Tensor, n: int, block, cap: int) -> LabelCounts:
+    """Each block's number of dictionary labels, saturated at ``cap + 1``,
+    and the largest of them (see the module docstring).
+
+    A CUDA tensor launches the hand-written count kernel (or raises), which
+    writes both; the load path follows :func:`count_plan` and is left in
+    ``block_label_counts.path``. A CPU tensor runs
+    :func:`block_label_counts_reference` and takes its maximum.
     ``block_label_counts.launches`` counts kernel launches."""
     block = tuple(int(b) for b in block)
     _check(dense, n, block, cap)
     if dense.device.type == "cpu":
-        return block_label_counts_reference(dense, n, block, cap)
+        counts = block_label_counts_reference(dense, n, block, cap)
+        largest = counts.max() if counts.numel() else torch.zeros((), dtype=torch.int32)
+        return LabelCounts(counts, largest)
     if dense.device.type != "cuda":
         raise ValueError(f"unsupported device {dense.device}")
     return _launch_count(build_kernel(), dense, n, block, cap)
 
 
-def _launch_count(lib, dense, n, block, cap) -> torch.Tensor:
-    if lib.ta_block_label_count_smem_bytes(cap) > _MAX_SMEM:
-        raise ValueError(f"count cap={cap} exceeds the count kernel's shared-memory bound")
+def block_label_counts(dense: torch.Tensor, n: int, block, cap: int) -> torch.Tensor:
+    """The counts of :func:`count_block_labels` alone: int32 ``[B]``."""
+    return count_block_labels(dense, n, block, cap).counts
+
+
+_count_ws: dict = {}
+
+
+def _count_workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    """The count kernel's int32 [2] workspace for its largest count, one a
+    device and stream (launches on one stream run in turn), zeroed once;
+    every launch leaves it zero."""
+    key = (dev.index, stream)
+    ws = _count_ws.get(key)
+    if ws is None:
+        ws = _count_ws[key] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    return ws
+
+
+def _launch_count(lib, dense, n, block, cap) -> LabelCounts:
+    plan = count_plan(dense, block, cap)
     Z, Y, X = dense.shape
     gz, gy, gx = _grid(dense.shape, block)
+    B = gz * gy * gx
     dev = dense.device
-    count = torch.empty((gz * gy * gx,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return LabelCounts(torch.empty((0,), dtype=torch.int32, device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+    out = torch.empty((B + 1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ta_block_label_count(
-            dense.data_ptr(), int(dense.dtype == torch.int32), Z, Y, X,
-            *block, cap, n, count.data_ptr(), stream,
+            dense.data_ptr(), int(dense.dtype == torch.int32), Z, Y, X, *block, n,
+            plan.cap, plan.hbits, plan.nlist, plan.stages, *plan.box, plan.stage_bytes,
+            plan.smem, out.data_ptr(), _count_workspace(dev, stream).data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"block_label_count kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"block_label_count kernel launch failed ({plan.path} path): CUDA error {err}")
     block_label_counts.launches += 1
-    return count
+    block_label_counts.path = plan.path
+    return LabelCounts(out[:B], out[B])
 
 
 block_label_counts.launches = 0
+block_label_counts.path = None
 
 
 def _layout(dense: torch.Tensor, block):
