@@ -196,6 +196,7 @@ def _reroute(why: str) -> None:
         UserWarning, stacklevel=4,
     )
     reroutes += 1
+    timing.count("reroutes")
 
 
 def auto_engine(stack: LabeledStack, device, part=None) -> str:
@@ -257,10 +258,13 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
         return None
     name = "cuda" if d.sweep is block_sweep else "torch"
     bound = dict_bound(name)
-    with timing.stage("device count (block labels)", int(np.prod(stack.shape)), stack.device):
+    with timing.stage("device count (block labels)", stack.shape, stack.device,
+                      span="count") as s:
         counted = count_block_labels(stack.dense, n, d.block, bound)
-        m = int(counted.largest)
-    B = counted.counts.numel()
+        with timing.wait("count.largest"):
+            m = int(counted.largest)
+        B = counted.counts.numel()
+        s.set(B=B, largest=m)
     where = f"a {tuple(d.block)} block of this {tuple(d.image.shape)} image (one of {B})"
     if m > bound:
         return (f"{where} holds more than {bound:,} dictionary labels, the largest "
@@ -269,7 +273,8 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
     while L < m:
         L = min(2 * L, bound)
     need = sweep_bytes(B, L)
-    give = givable_bytes(stack.device, held + need)
+    with timing.span("memory_check"):
+        give = givable_bytes(stack.device, held + need)
     if give is not None and held + need > give:
         return (f"{where} holds {m:,} dictionary labels, so the {name!r} block "
                 f"engine sweeps at L={L}, and its outputs there ([B, L, 3L] face "
@@ -303,9 +308,18 @@ def _block_plan(stack: LabeledStack, engine: str, L: int = 32,
 
 
 def _launch(d: "Dispatched") -> "Dispatched":
-    with timing.stage("device sweep (block)", int(np.prod(d.stack.shape)), d.stack.device):
-        d.out = d.sweep(d.stack.dense, d.n_sweep, d.block, d.L)
+    d.out = _sweep(d, d.L)
     return d
+
+
+def _sweep(d: "Dispatched", L: int):
+    """One block sweep of ``d``'s stack at dictionary size ``L``."""
+    with timing.stage("device sweep (block)", d.stack.shape, d.stack.device,
+                      span="sweep", L=L) as s:
+        out = d.sweep(d.stack.dense, d.n_sweep, d.block, L)
+        s.set(B=out.ovf.shape[0])
+        timing.count("sweeps")
+    return out
 
 
 def _dispatch_flat(stack: LabeledStack, chunk: Optional[int] = None) -> "Dispatched":
@@ -320,6 +334,15 @@ def dispatch_counted(stack: LabeledStack, L: int = 32, n_bucket: Optional[int] =
     can take the stack, the flat engine (a warning and one more of
     :data:`reroutes`). A streamed slab comes here directly: the label count
     of its whole image says nothing of its blocks."""
+    pid = timing.new_pass()
+    with timing.span("dispatch", pass_id=pid):
+        d = _dispatch_counted(stack, L, n_bucket, chunk)
+    d.pass_id = pid
+    return d
+
+
+def _dispatch_counted(stack: LabeledStack, L: int, n_bucket: Optional[int],
+                      chunk: Optional[int]) -> "Dispatched":
     d = _block_plan(stack, block_engine("auto", stack.device), L, n_bucket)
     why = fit_dictionary(d)
     if why is not None:
@@ -353,11 +376,10 @@ def flat_sweep(stack: LabeledStack, chunk: Optional[int] = None) -> Finished:
     block; a 2D stack is swept as it is."""
     if stack.ndim not in (2, 3):
         raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
-    n, dev = stack.n_labels, stack.device
-    voxels = int(np.prod(stack.shape))
-    with timing.stage("device sweep (flat moments)", voxels, dev):
+    n, dev, shape = stack.n_labels, stack.device, stack.shape
+    with timing.stage("device sweep (flat moments)", shape, dev, span="flat.moments"):
         mom, cmin, cmax = segred.moment_sweep(stack.dense, n, chunk)
-    with timing.stage("device sweep (flat pairs)", voxels, dev):
+    with timing.stage("device sweep (flat pairs)", shape, dev, span="flat.pairs"):
         pkey, ptotal = stencil.pair_sweep(stack.dense, n, chunk)
     return Finished(mom, cmin, cmax, pkey, ptotal)
 
@@ -377,6 +399,8 @@ class Dispatched:
     # the block sweep's SweepOut (None until launched), or the flat
     # engine's Finished
     out: object
+    # the pass the dispatch opened, which the collect continues
+    pass_id: int = 0
 
 
 def analyze_stack(
@@ -431,19 +455,23 @@ def dispatch_stack(
         raise ValueError(f"expected a 2D or 3D stack, got shape {stack.shape}")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-    if engine == "auto":
-        if auto_engine(stack, stack.device) == "chunked":
-            return _dispatch_flat(stack, chunk)
-        return dispatch_counted(stack, L, n_bucket, chunk)
-    if engine == "chunked":
-        return _dispatch_flat(stack, chunk)
-    return _launch(_block_plan(stack, engine, L, n_bucket))
+    pid = timing.new_pass()
+    with timing.span("dispatch", pass_id=pid, engine=engine):
+        if engine == "auto" and auto_engine(stack, stack.device) != "chunked":
+            d = _dispatch_counted(stack, L, n_bucket, chunk)
+        elif engine in ("auto", "chunked"):
+            d = _dispatch_flat(stack, chunk)
+        else:
+            d = _launch(_block_plan(stack, engine, L, n_bucket))
+    d.pass_id = pid
+    return d
 
 
 def collect_stack(d: Dispatched) -> FeatureTable:
     """Finish a dispatched sweep on the device (:func:`finish_stack`), then
     read it back and assemble the table (:func:`assemble_table`)."""
-    return assemble_table(d.image, finish_stack(d))
+    with timing.span("collect", pass_id=d.pass_id):
+        return assemble_table(d.image, finish_stack(d))
 
 
 def analyze_stack_chunked(
@@ -512,26 +540,37 @@ def finish_stack(d: Dispatched) -> Finished:
         raise ValueError("this dispatched sweep was collected already")
     if d.sweep is flat_sweep:
         return out
-    stack, Lc = d.stack, d.L
-    dev = stack.device
-    n, n_sweep = stack.n_labels, d.n_sweep
+    Lc = d.L
     bound = dict_bound("cuda" if d.sweep is block_sweep else "torch")
-    while bool(out.ovf.any()):
-        if Lc >= bound:
-            raise RuntimeError(
-                f"per-block dictionary still overflows at L={Lc}, the largest "
-                f'this engine takes (engine="chunked", the flat engine, has '
-                f"no per-block dictionary)"
-            )
-        del out
-        Lc = min(2 * Lc, bound)
-        with timing.stage("device sweep (block)", int(np.prod(stack.shape)), dev):
-            out = d.sweep(stack.dense, n_sweep, d.block, Lc)
-    # stacks of one key share the largest size any of them needed (equal
-    # slabs of one sharded stack, frames of one series)
-    _GOOD_L[d.key] = max(Lc, _GOOD_L.get(d.key, Lc))
+    with timing.span("finish") as fs:
+        while _overflows(out):
+            if Lc >= bound:
+                raise RuntimeError(
+                    f"per-block dictionary still overflows at L={Lc}, the largest "
+                    f'this engine takes (engine="chunked", the flat engine, has '
+                    f"no per-block dictionary)"
+                )
+            del out
+            Lc = min(2 * Lc, bound)
+            out = _sweep(d, Lc)
+        fs.set(L=Lc)
+        # stacks of one key share the largest size any of them needed (equal
+        # slabs of one sharded stack, frames of one series)
+        _GOOD_L[d.key] = max(Lc, _GOOD_L.get(d.key, Lc))
+        return _combine(d, out)
 
-    with timing.stage("combine + pair reduce", None, dev):
+
+def _overflows(out) -> bool:
+    """Whether a block of the sweep ``out`` overflowed its dictionary: one
+    readback."""
+    with timing.wait("finish.ovf"):
+        return bool(out.ovf.any())
+
+
+def _combine(d: Dispatched, out) -> Finished:
+    """The combine and pair reduce of a converged sweep ``out`` of ``d``."""
+    stack, n, n_sweep = d.stack, d.stack.n_labels, d.n_sweep
+    with timing.stage("combine + pair reduce", None, stack.device, span="combine"):
         mom, cmin, cmax = combine.combine_moments(
             out.ids, out.mom, out.gmin, out.gmax, n_sweep
         )
@@ -551,32 +590,34 @@ def assemble_table(image: LabeledStack, fin: Finished) -> FeatureTable:
     """Read a :class:`Finished` back and assemble the table of ``image``
     (its ids, shape, voxel size and background)."""
     d, n = image.ndim, image.n_labels
-    with timing.stage("readback + host assemble"):
-        mom = fin.mom.cpu().numpy()
-        cmin = fin.cmin.cpu().numpy().astype(np.int64)
-        cmax = fin.cmax.cpu().numpy().astype(np.int64)
-        pair_lo, pair_hi, counts = combine.decode_pairs(
-            fin.pkey.cpu().numpy(), fin.ptotal.cpu().numpy(), n, d
+    with timing.span("assemble"):
+        with timing.stage("readback + host assemble"):
+            with timing.wait("assemble.readback", syncs=5, name="readback") as w:
+                host = [t.cpu().numpy() for t in fin]
+                w.set(bytes=sum(a.nbytes for a in host))
+            mom, cmin, cmax, pkey, ptotal = host
+            cmin = cmin.astype(np.int64)
+            cmax = cmax.astype(np.int64)
+            pair_lo, pair_hi, counts = combine.decode_pairs(pkey, ptotal, n, d)
+        count = mom[:, 0].copy()
+        empty = count == 0
+        cmin[empty] = 0
+        cmax[empty] = 0
+        return FeatureTable(
+            ids=image.ids.copy(),
+            shape=image.shape,
+            voxelsize=image.voxelsize,
+            background_segment=image.background_segment,
+            count=count,
+            s1=mom[:, 1:1 + d].copy(),
+            s2=mom[:, 1 + d:].copy(),
+            cmin=cmin,
+            cmax=cmax,
+            pair_lo=pair_lo,
+            pair_hi=pair_hi,
+            wall_face_counts=counts,
+            margin=_margin_from_bbox(count, cmin, cmax, image.shape),
         )
-    count = mom[:, 0].copy()
-    empty = count == 0
-    cmin[empty] = 0
-    cmax[empty] = 0
-    return FeatureTable(
-        ids=image.ids.copy(),
-        shape=image.shape,
-        voxelsize=image.voxelsize,
-        background_segment=image.background_segment,
-        count=count,
-        s1=mom[:, 1:1 + d].copy(),
-        s2=mom[:, 1 + d:].copy(),
-        cmin=cmin,
-        cmax=cmax,
-        pair_lo=pair_lo,
-        pair_hi=pair_hi,
-        wall_face_counts=counts,
-        margin=_margin_from_bbox(count, cmin, cmax, image.shape),
-    )
 
 
 def _margin_from_bbox(count, cmin, cmax, shape) -> np.ndarray:

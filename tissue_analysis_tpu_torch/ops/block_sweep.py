@@ -68,6 +68,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from tissue_analysis_tpu_torch.utils import timing
+
 __all__ = [
     "IMAX",
     "CountPlan",
@@ -266,6 +268,7 @@ def _launch(lib, dense, n, block, L) -> SweepOut:
     if err != 0:
         raise RuntimeError(f"block_sweep kernel launch failed: CUDA error {err}")
     block_sweep.launches += 1
+    timing.count("launches.block_sweep")
     return out
 
 
@@ -393,6 +396,7 @@ def _launch_count(lib, dense, n, block, cap) -> LabelCounts:
         raise RuntimeError(
             f"block_label_count kernel launch failed ({plan.path} path): CUDA error {err}")
     block_label_counts.launches += 1
+    timing.count("launches.block_label_count")
     block_label_counts.path = plan.path
     return LabelCounts(out[:B], out[B])
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from tissue_analysis_tpu_torch.ops.block_sweep import IMAX
+from tissue_analysis_tpu_torch.utils import timing
 
 __all__ = ["combine_moments", "reduce_pairs", "sum_by_key", "shift_moments", "decode_pairs"]
 
@@ -50,7 +51,8 @@ def reduce_pairs(
     key = lo·4n + hi·4 + axis for the label pair lo < hi < n and the face
     axis; totals sum the entries of equal keys across blocks."""
     L = ids.shape[1]
-    b, s, c = torch.nonzero(faces, as_tuple=True)
+    with timing.wait("combine.nonzero"):
+        b, s, c = torch.nonzero(faces, as_tuple=True)
     cnt = faces[b, s, c].to(torch.int64)
     axis = torch.div(c, L, rounding_mode="floor")
     ga = ids[b, s].to(torch.int64)
@@ -58,7 +60,9 @@ def reduce_pairs(
     lo = torch.minimum(ga, gb)
     hi = torch.maximum(ga, gb)
     ok = (hi < n) & (lo != hi)
-    return sum_by_key((lo * (4 * n) + hi * 4 + axis)[ok], cnt[ok])
+    with timing.wait("combine.mask", syncs=2):
+        key, cnt = (lo * (4 * n) + hi * 4 + axis)[ok], cnt[ok]
+    return sum_by_key(key, cnt)
 
 
 def sum_by_key(
@@ -66,7 +70,8 @@ def sum_by_key(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """int64 keys and counts → (sorted unique keys, the sum of the counts
     of each), on the device of ``key``."""
-    ukey, inv = torch.unique(key, sorted=True, return_inverse=True)
+    with timing.wait("sum_by_key.unique", syncs=int(key.numel() > 0)):
+        ukey, inv = torch.unique(key, sorted=True, return_inverse=True)
     total = torch.zeros(ukey.shape[0], dtype=torch.int64, device=key.device)
     total.index_add_(0, inv, count)
     return ukey, total

@@ -31,6 +31,7 @@ import torch
 from tissue_analysis_tpu_torch.core.stack import widened
 from tissue_analysis_tpu_torch.features.finalize import tri_pairs
 from tissue_analysis_tpu_torch.ops.block_sweep import IMAX
+from tissue_analysis_tpu_torch.utils import timing
 
 __all__ = [
     "moment_sweep",
@@ -92,10 +93,15 @@ def _run_rows(seg: torch.Tensor, g0: int, shape):
     k, nd, X = seg.numel(), len(shape), int(shape[-1])
     gidx = g0 + torch.arange(k, dtype=torch.int64, device=seg.device)
     start = gidx % X == 0
-    start[0] = True
+    # a Python value set into a card's tensor is copied from the host: a wait
+    with timing.wait("segred.run_start"):
+        start[0] = True
     start[1:] |= seg[1:] != seg[:-1]
-    first = torch.nonzero(start).squeeze(1)
-    length = torch.diff(first, append=first.new_tensor([k]))
+    with timing.wait("segred.nonzero"):
+        first = torch.nonzero(start).squeeze(1)
+    # the host's k, copied to the device, waits for the device's queue
+    with timing.wait("segred.run_end"):
+        length = torch.diff(first, append=first.new_tensor([k]))
     c = _coords(gidx[first], shape)
     x0 = c[-1]
     x1 = x0 + length - 1
@@ -143,6 +149,7 @@ def moment_chunks(
     cmin = torch.full((n + 1, nd), IMAX, dtype=torch.int32, device=dev)
     cmax = torch.full((n + 1, nd), -1, dtype=torch.int32, device=dev)
     for s in range(0, flat.numel(), chunk):
+        timing.count("flat.chunks")
         seg = widened(flat[s:s + chunk]).to(torch.int64)
         seg = torch.where((seg >= 0) & (seg < n), seg, n)
         seg, feats, lo, hi = _run_rows(seg, int(flat_start) + s, shape)

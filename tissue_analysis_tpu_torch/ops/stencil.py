@@ -34,6 +34,7 @@ import torch
 from tissue_analysis_tpu_torch.core.stack import widened
 from tissue_analysis_tpu_torch.ops.combine import sum_by_key
 from tissue_analysis_tpu_torch.ops.segred import DEFAULT_CHUNK
+from tissue_analysis_tpu_torch.utils import timing
 
 __all__ = [
     "pair_sweep",
@@ -135,7 +136,8 @@ def pair_key_streams(lab: torch.Tensor, n_labels: int, offsets, tags) -> torch.T
         valid = (lo != hi) & (lo >= 0) & (hi < n)
         # one masked select (one host sync) an offset, on the finished keys
         key = lo.to(torch.int64) * (4 * n) + hi.to(torch.int64) * 4 + int(tag)
-        keys.append(key[valid])
+        with timing.wait("stencil.mask"):
+            keys.append(key[valid])
     return torch.cat(keys)
 
 
@@ -158,7 +160,10 @@ def chunked_key_reduce(
     for stream in keys:
         # an empty stream still gives its (empty) table, on its device
         for s in range(0, max(stream.numel(), 1), chunk):
-            k, c = torch.unique(stream[s:s + chunk], sorted=True, return_counts=True)
+            piece = stream[s:s + chunk]
+            # the reduction of an empty piece returns without a wait
+            with timing.wait("stencil.unique", syncs=int(piece.numel() > 0)):
+                k, c = torch.unique(piece, sorted=True, return_counts=True)
             ks.append(k)
             cs.append(c)
     if not ks:

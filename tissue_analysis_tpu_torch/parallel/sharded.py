@@ -199,6 +199,31 @@ def analyze_sharded(
         if auto_engine(stack, mesh.devices[0], part) == "chunked":
             return analyze_sharded_chunked(stack, mesh, max_pairs, chunk)
 
+    pid = timing.new_pass()
+    with timing.span("dispatch", pass_id=pid):
+        launched = _launch_slabs(stack, mesh, engine, L)
+    if launched is None:
+        return _flat_pass(stack, mesh, max_pairs, chunk, pid)
+    slabs, handles = launched
+    with timing.span("collect", pass_id=pid):
+        parts = []
+        for k, ((z0, dense), h) in enumerate(zip(slabs, handles)):
+            fin = finish_stack(h)
+            with timing.stage("shard: shift + z-seam", None, dense.device):
+                mom, cmin, cmax = combine.shift_moments(fin.mom, fin.cmin, fin.cmax, z0)
+                pkey, ptotal = _with_seam(slabs, k, n, fin.pkey, fin.ptotal)
+            parts.append((mom, cmin, cmax, pkey, ptotal))
+        dev0 = mesh.devices[0]
+        with timing.stage("shard: merge", None, dev0):
+            merged = _merge(parts, dev0)
+        return assemble_table(stack, merged)
+
+
+def _launch_slabs(stack: LabeledStack, mesh: Mesh, engine: str, L: int):
+    """(slabs, handles): every slab of ``stack`` copied to its mesh device
+    and its block sweep launched, under ``"auto"`` after every slab is
+    counted; None where a count says no block sweep can take a slab (a
+    warning and one more reroute)."""
     with timing.stage("shard: slab copy", int(stack.dense.numel())):
         slabs = _split(stack.dense, mesh)
     plans = [
@@ -214,21 +239,9 @@ def analyze_sharded(
             why = fit_dictionary(p, held.get(dev, 0))
             if why is not None:
                 _reroute(why)
-                return analyze_sharded_chunked(stack, mesh, max_pairs, chunk)
+                return None
             held[dev] = held.get(dev, 0) + sweep_bytes(n_blocks(p.stack.shape, p.block), p.L)
-    handles = [_launch(p) for p in plans]
-
-    parts = []
-    for k, ((z0, dense), h) in enumerate(zip(slabs, handles)):
-        fin = finish_stack(h)
-        with timing.stage("shard: shift + z-seam", None, dense.device):
-            mom, cmin, cmax = combine.shift_moments(fin.mom, fin.cmin, fin.cmax, z0)
-            pkey, ptotal = _with_seam(slabs, k, n, fin.pkey, fin.ptotal)
-        parts.append((mom, cmin, cmax, pkey, ptotal))
-    dev0 = mesh.devices[0]
-    with timing.stage("shard: merge", None, dev0):
-        merged = _merge(parts, dev0)
-    return assemble_table(stack, merged)
+    return slabs, [_launch(p) for p in plans]
 
 
 def sharded_pipeline(
@@ -265,9 +278,11 @@ def sharded_pipeline(
     parts = []
     for k, (z0, slab) in enumerate(slabs):
         voxels = int(slab.numel())
-        with timing.stage("device sweep (flat moments)", voxels, slab.device):
+        with timing.stage("device sweep (flat moments)", voxels, slab.device,
+                          span="flat.moments"):
             mom, cmin, cmax = segred.moment_sweep(slab, n, chunk, z0 * plane, shape)
-        with timing.stage("device sweep (flat pairs)", voxels, slab.device):
+        with timing.stage("device sweep (flat pairs)", voxels, slab.device,
+                          span="flat.pairs"):
             pkey, ptotal = stencil.pair_sweep(slab, n, chunk)
         with timing.stage("shard: shift + z-seam", None, slab.device):
             pkey, ptotal = _with_seam(slabs, k, n, pkey, ptotal)
@@ -309,8 +324,17 @@ def analyze_sharded_chunked(
     host assembly. ``max_pairs`` is accepted and ignored."""
     if mesh is None:
         mesh = make_mesh()
-    parts = sharded_pipeline(stack.dense, stack.n_labels, chunk, max_pairs, mesh)
-    dev0 = mesh.devices[0]
-    with timing.stage("shard: merge", None, dev0):
-        merged = _merge(parts, dev0)
-    return assemble_table(stack, merged)
+    return _flat_pass(stack, mesh, max_pairs, chunk, timing.new_pass())
+
+
+def _flat_pass(stack: LabeledStack, mesh: Mesh, max_pairs: Optional[int],
+               chunk: Optional[int], pid: int) -> FeatureTable:
+    """:func:`analyze_sharded_chunked`'s work, as pass ``pid`` (that of a
+    stack rerouted after its count)."""
+    with timing.span("dispatch", pass_id=pid):
+        parts = sharded_pipeline(stack.dense, stack.n_labels, chunk, max_pairs, mesh)
+    with timing.span("collect", pass_id=pid):
+        dev0 = mesh.devices[0]
+        with timing.stage("shard: merge", None, dev0):
+            merged = _merge(parts, dev0)
+        return assemble_table(stack, merged)
