@@ -92,12 +92,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the load path it took, timed beside its bound and the sweep;
     then voronoi-512-dense1, phase 3's stack with one block (z 256:264,
     y 256:272, x 256:384) overwritten by 16,384 fresh labels, past every
-    dictionary: ``auto`` counts, reroutes before any sweep and equals
-    ``engine="chunked"``, resident, streamed at ``slab_z=128`` (one slab by
-    the flat engine, three by the kernel), as frame 0 of a two-frame series
-    and sharded four ways on cuda:0; and the same stack with 600 labels in
-    that block, whose sweep at L = 1024 would need ~104 GB: routed by the
-    memory test with no sweep.
+    dictionary: ``auto`` counts, sweeps at L = 32 with that block and its
+    three predecessors routed to the flat engine, no reroute, and equals
+    ``engine="chunked"``, resident, streamed at ``slab_z=128`` (every slab
+    by the kernel, the routed blocks of one flat), as frame 0 of a
+    two-frame series, and sharded four ways on cuda:0 (the whole stack
+    rerouted to the sharded flat engine before any sweep); and the same
+    stack with 600 labels in that block, whose sweep at L = 1024 would need
+    ~104 GB: split by the memory test, no reroute.
 
 ``engine.reroutes`` is set to 0 at the start and must still be 0 after
 phases 3-17 and again at the end of phase 18: every path that asked for the
@@ -166,6 +168,9 @@ SERIES_SEEDS = (2, 3)  # frames after the seed-1 stack
 # voronoi-512-dense1: one default block of phase 3's stack overwritten
 DENSE1_BLOCK = (slice(256, 264), slice(256, 272), slice(256, 384))
 DENSE1_FRESH, DENSE600_FRESH = 16384, 600
+# phase 19's stacks of many dense blocks: 20 route 80 blocks, fewer bytes
+# than the flat engine over 512^3; 40 would route 160, more
+MANY_SPLIT, MANY_WHOLE = 20, 40
 SLAB_Z = 128
 # phase 19's crops of the 512^3 stack: a row pitch TMA cannot take, and
 # ragged far edges on every axis
@@ -1258,7 +1263,9 @@ def phase_count(cases, log_prefix="[19]"):
 
 def phase_routes(img, frame2, log_prefix="[19]"):
     """voronoi-512-dense1 (16,384 fresh labels in one block) resident,
-    streamed, as a series frame and sharded, and the 600-label block: every
+    streamed, as a series frame and sharded, the 600-label block, a small
+    stack on which no split pays, and 512^3 stacks of many dense blocks
+    (the split's and the flat engine's time and peak memory): every
     ``auto`` path counts and routes before any sweep. Returns the count
     launches of each path."""
     import warnings
@@ -1268,6 +1275,7 @@ def phase_routes(img, frame2, log_prefix="[19]"):
 
     from tissue_analysis_tpu_torch import engine
     from tissue_analysis_tpu_torch.core.stack import LabeledStack
+    from tissue_analysis_tpu_torch.ops import stencil
     from tissue_analysis_tpu_torch.ops.block_sweep import block_label_counts, block_sweep
     from tissue_analysis_tpu_torch.parallel import Mesh, analyze_sharded
     from tissue_analysis_tpu_torch.series import analyze_series
@@ -1308,30 +1316,29 @@ def phase_routes(img, frame2, log_prefix="[19]"):
     img1, base = with_block(DENSE1_FRESH)
     st = LabeledStack.from_array(img1, background=1, device="cuda")
     t_make = time.perf_counter() - t0
-    auto, t_auto, warned = routed("dense1", lambda: engine.analyze_stack(st), 0, 1)
-    if "more than" not in warned[0]:
-        raise AssertionError(f"dense1: {warned[0]}")
+    auto, t_auto, _ = routed("dense1", lambda: engine.analyze_stack(st), 1, 1, reroutes=0)
+    d = engine.dispatch_stack(st)
+    engine.collect_stack(d)
+    if d.L != 32 or d.split is None or d.split.shape[1] != 4:
+        raise AssertionError(f"dense1: L={d.L}, routed blocks {d.split}")
     tables_equal(engine.analyze_stack(st, engine="chunked"), auto, "dense1 auto vs chunked")
     fresh = auto.ids >= base
     if int(fresh.sum()) != DENSE1_FRESH or not np.all(auto.count[fresh] == 1):
         raise AssertionError("dense1: the fresh labels are not 16,384 of one voxel each")
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        t_auto_best = best_of(lambda: engine.analyze_stack(st), reps=3, warmup=1)
+    t_auto_best = best_of(lambda: engine.analyze_stack(st), reps=3, warmup=1)
     t_flat = best_of(lambda: engine.analyze_stack(st, engine="chunked"), reps=3, warmup=1)
     engine.reroutes = 0
     log(f"{log_prefix} voronoi-{SIZE}-dense1 ({st.n_labels} labels, {DENSE1_FRESH} of them in "
-        f"one block; made and relabeled in {t_make:.1f} s): auto 1 count launch, 0 sweeps, 1 "
-        f"reroute, 1 warning; table == engine='chunked', every fresh label 1 voxel; auto "
-        f"{t_auto_best * 1e3:.3f} ms (first {t_auto * 1e3:.3f} ms) vs chunked "
-        f"{t_flat * 1e3:.3f} ms (best of 3)")
-    log(f"{log_prefix} dense1 warning: {warned[0]}")
+        f"one block; made and relabeled in {t_make:.1f} s): auto 1 count launch, 1 sweep at "
+        f"L=32, 4 blocks routed to the flat engine, 0 reroutes; table == engine='chunked', "
+        f"every fresh label 1 voxel; auto {t_auto_best * 1e3:.3f} ms (first "
+        f"{t_auto * 1e3:.3f} ms) vs chunked {t_flat * 1e3:.3f} ms (best of 3)")
 
     streamed, t_stream, _ = routed("dense1 streamed", lambda: analyze_streamed(
-        img1, background=1, slab_z=SLAB_Z, device="cuda"), 3, 4)
+        img1, background=1, slab_z=SLAB_Z, device="cuda"), 4, 4, reroutes=0)
     tables_equal(auto, streamed, "dense1 streamed vs resident")
     frames, t_series, _ = routed("dense1 series", lambda: analyze_series(
-        [img1, frame2], background=1, devices=["cuda"]), 1, 2)
+        [img1, frame2], background=1, devices=["cuda"]), 2, 2, reroutes=0)
     tables_equal(auto, frames[0], "dense1 series frame 0 vs resident")
     tables_equal(engine.analyze_stack(LabeledStack.from_array(frame2, background=1, device="cuda")),
                  frames[1], "dense1 series frame 1 vs analyze_stack")
@@ -1340,21 +1347,79 @@ def phase_routes(img, frame2, log_prefix="[19]"):
     # the sharded flat engine before any sweep
     sharded, t_sh, _ = routed("dense1 sharded", lambda: analyze_sharded(st, mesh), 0, 3)
     tables_equal(auto, sharded, "dense1 sharded vs resident")
-    log(f"{log_prefix} dense1 streamed slab_z={SLAB_Z}: 4 counts, 3 sweeps, slab 2 by the flat "
-        f"engine, table == resident, {t_stream * 1e3:.3f} ms; series [dense1, seed {SERIES_SEEDS[0]}]: "
-        f"only frame 0 routed (2 counts, 1 sweep), tables == analyze_stack, {t_series * 1e3:.3f} ms; "
+    log(f"{log_prefix} dense1 streamed slab_z={SLAB_Z}: 4 counts, 4 sweeps, slab 2 split, "
+        f"table == resident, {t_stream * 1e3:.3f} ms; series [dense1, seed {SERIES_SEEDS[0]}]: "
+        f"only frame 0 split (2 counts, 2 sweeps), tables == analyze_stack, {t_series * 1e3:.3f} ms; "
         f"sharded 4 slabs on cuda:0: 3 counts, 0 sweeps, the sharded flat engine, table == "
         f"resident, {t_sh * 1e3:.3f} ms")
     del img1, st, auto, streamed, frames, sharded
 
     img6, _ = with_block(DENSE600_FRESH)
     st6 = LabeledStack.from_array(img6, background=1, device="cuda")
-    got6, t6, warned6 = routed("dense600", lambda: engine.analyze_stack(st6), 0, 1)
-    if "L=1024" not in warned6[0] or "bytes" not in warned6[0]:
-        raise AssertionError(f"dense600: {warned6[0]}")
+    got6, t6, _ = routed("dense600", lambda: engine.analyze_stack(st6), 1, 1, reroutes=0)
+    d = engine.dispatch_stack(st6)
+    engine.collect_stack(d)
+    if d.split is None:
+        raise AssertionError(f"dense600: swept at L={d.L} with no block routed")
     tables_equal(engine.analyze_stack(st6, engine="chunked"), got6, "dense600 auto vs chunked")
-    log(f"{log_prefix} 600 labels in one block ({st6.n_labels} labels): 1 count, 0 sweeps, routed "
-        f"by the memory test, table == engine='chunked', {t6 * 1e3:.3f} ms: {warned6[0]}")
+    log(f"{log_prefix} 600 labels in one block ({st6.n_labels} labels): 1 count, 1 sweep at "
+        f"L={d.L} with {d.split.shape[1]} blocks routed to the flat engine by the memory test, "
+        f"table == engine='chunked', {t6 * 1e3:.3f} ms")
+    del img6, st6, got6
+
+    # no split pays: the one dense block of 5,462 labels beside three empty
+    # blocks (routing it takes more bytes than the flat engine over 65,536
+    # voxels) is rerouted whole after its count, before any sweep
+    small = np.ones((8, 16, 512), np.int32)
+    small[:, :, :128] = 2 + np.arange(8 * 16 * 128).reshape(8, 16, 128) // 3
+    sts = LabeledStack.from_array(small, background=1, device="cuda")
+    gots, _, warned = routed("declined", lambda: engine.analyze_stack(sts), 0, 1)
+    tables_equal(engine.analyze_stack(sts, engine="chunked"), gots, "declined auto vs chunked")
+    log(f"{log_prefix} one block of 5,462 labels beside three empty ones: 1 count, 0 sweeps, "
+        f"1 reroute, 1 warning ({warned[0][:60]}...), table == engine='chunked'")
+
+    # k blocks of 16,384 one-voxel labels, every other block along each axis
+    # from block (1, 1, 1): each routes itself and its three predecessors
+    half_y, half_x = img.shape[1] // 32, img.shape[2] // 256
+    for k, splits in ((MANY_SPLIT, True), (MANY_WHOLE, False)):
+        # int32: the fresh labels outnumber uint16
+        a = np.asarray(img).astype(np.int32)
+        base = int(a.max()) + 1
+        for i in range(k):
+            z, r = divmod(i, half_y * half_x)
+            y, x = divmod(r, half_x)
+            bz, by, bx = 2 * z + 1, 2 * y + 1, 2 * x + 1
+            a[8 * bz:8 * bz + 8, 16 * by:16 * by + 16, 128 * bx:128 * bx + 128] = (
+                base + np.arange(8 * 16 * 128).reshape(8, 16, 128))
+            base += 8 * 16 * 128
+        stk = LabeledStack.from_array(a, background=1, device="cuda")
+        del a
+        gotk, _, _ = routed(f"many{k}", lambda: engine.analyze_stack(stk), int(splits), 1,
+                            reroutes=int(not splits))
+        tables_equal(engine.analyze_stack(stk, engine="chunked"), gotk, f"many{k} auto vs chunked")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            peak = {}
+            for name in ("auto", "chunked"):
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                engine.analyze_stack(stk, engine=name)
+                sync()
+                peak[name] = torch.cuda.max_memory_allocated() - held
+            t_k = best_of(lambda: engine.analyze_stack(stk), reps=3, warmup=1)
+            t_f = best_of(lambda: engine.analyze_stack(stk, engine="chunked"), reps=3, warmup=1)
+            d = engine.dispatch_stack(stk)
+            engine.collect_stack(d)
+        routed_k = 0 if d.split is None else d.split.shape[1]
+        if splits and peak["auto"] >= peak["chunked"]:
+            raise AssertionError(f"many{k}: the split's peak {peak} is not below the flat engine's")
+        log(f"{log_prefix} {k} blocks of 16,384 labels ({stk.n_labels} labels): "
+            f"{'split, ' + str(routed_k) + ' blocks routed' if splits else 'rerouted whole'}; "
+            f"table == engine='chunked'; auto {t_k * 1e3:.3f} ms, peak {peak['auto'] / 2**20:.1f} "
+            f"MiB vs chunked {t_f * 1e3:.3f} ms, peak {peak['chunked'] / 2**20:.1f} MiB (best of 3; "
+            f"the flat engine's floor {stencil.pair_sweep_bytes(stk.shape) / 2**20:.1f} MiB)")
+        del stk, gotk
     return counts
 
 
@@ -1670,7 +1735,8 @@ def run_phases(futures) -> int:
         # no single PyTorch call counts distinct labels a block
         "library_ms": None,
         "shapes": counts,
-        # voronoi-512-dense1 resident, streamed, series, sharded; dense600
+        # voronoi-512-dense1 resident, streamed, series, sharded; dense600;
+        # declined; many20, many40
         "launches_routes": route_counts,
     }],
         # plain PyTorch (scatter and sort library kernels), the yardstick of

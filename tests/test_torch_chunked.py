@@ -410,7 +410,10 @@ def test_capacity_is_decided_from_sizes_alone(monkeypatch):
     assert engine.block_engine("chunked", "cuda:1") == "chunked"
     monkeypatch.undo()
 
-    # the mean shortcut launches no count; a stack inside it is counted once
+    # the mean shortcut launches no count; a stack inside it is counted once.
+    # Its one block past every dictionary goes to the flat engine with the
+    # whole stack where routing it alone takes more bytes (two blocks), and
+    # alone where it takes fewer (ten)
     counts = _count_calls(monkeypatch)
     engine.reroutes = 0
     with pytest.warns(UserWarning, match="16384 labels or more"):
@@ -421,6 +424,15 @@ def test_capacity_is_decided_from_sizes_alone(monkeypatch):
     with pytest.warns(UserWarning, match="more than 4,096 dictionary labels"):
         engine.analyze(_dense_block_image((8, 16, 256)), device="cpu")
     assert engine.reroutes == 2 and counts == [4096]
+    img = _dense_block_image((8, 16, 1280))
+    want = engine.analyze(img, device="cpu", engine="chunked")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with timing.collect(fence=False) as t:
+            got = engine.analyze(img, device="cpu")
+    assert engine.reroutes == 2 and counts == [4096, 4096]
+    assert list(t.counts.values()) == [{"splits": 1, "split.blocks": 1, "sweeps": 1}]
+    assert_tables_equal(want, got)
 
 
 def _count_calls(monkeypatch) -> list:
@@ -470,10 +482,11 @@ def test_label_space_without_voxels_does_not_reroute(monkeypatch):
 def test_nothing_reroutes_after_a_launch(monkeypatch):
     """One block of 5,462 labels beside an empty one: 2,732 a block by the
     mean, inside the capacity. The count finds the dense block past L=4096
-    before any sweep, so ``auto`` warns, counts one reroute and returns the
-    JAX chunked table with no block sweep. A stack that the count lets
-    through (83 labels a block: L=128) raises under ``auto`` as under
-    ``torch`` where its face buffer cannot be had or its sweep fails."""
+    before any sweep, and no split pays on two blocks, so ``auto`` warns,
+    counts one reroute and returns the JAX chunked table with no block
+    sweep. A stack that the count lets through (83 labels a block: L=128)
+    raises under ``auto`` as under ``torch`` where its face buffer cannot
+    be had or its sweep fails."""
     img = _dense_block_image((8, 16, 256))
     st = LabeledStack.from_array(img, background=1, device="cpu")
     assert st.n_labels == 5463
@@ -573,32 +586,38 @@ def test_sharded_auto_reroutes_whole_and_streamed_sweeps_as_named():
 
 
 # ------------------------------- one dense block through every "auto" path
+#: ten blocks: routing the dense block alone takes fewer bytes than the
+#: flat engine over the stack
+WIDE = (8, 16, 1280)
+
+
 def _dense_block_stack_2x():
-    """Two 8-deep slabs of two blocks each; the dense block lies in the
-    second slab: 1,366 labels a block by the mean."""
-    img = np.ones((16, 16, 256), np.int32)
-    img[8:] = _dense_block_image((8, 16, 256))
+    """Two 8-deep slabs of ten blocks each; the dense block lies in the
+    second slab: 274 labels a block by the mean."""
+    img = np.ones((16,) + WIDE[1:], np.int32)
+    img[8:] = _dense_block_image(WIDE)
     return img
 
 
 def _frames():
-    """Three series frames: an ordinary one, the dense block, an ordinary
-    one."""
-    return [np.asarray(voronoi_stack((8, 16, 256), c, seed=s)) for c, s in ((12, 3), (9, 4))]
+    """The ordinary frames of a series around the dense block."""
+    return [np.asarray(voronoi_stack(WIDE, c, seed=s)) for c, s in ((12, 3), (9, 4))]
 
 
 @pytest.mark.parametrize("path", ["resident", "streamed", "series", "sharded"])
 def test_one_dense_block_under_auto_equals_jax_chunked(path):
     """Each ``auto`` entry point answers a stack with one block past every
     dictionary: the table equals the JAX package's ``analyze_stack_chunked``
-    field by field, the dense part is swept by the flat engine only, and
-    each route is one warning and one counted reroute."""
+    field by field, and the dense block is swept by the flat engine only.
+    A single stack (resident, a streamed slab, a series frame) sends that
+    block alone to the flat engine, with no warning; the sharded engine
+    sends the whole stack, with one warning and one counted reroute."""
     engine.reroutes = 0
     with timing.collect() as t:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             if path == "resident":
-                img = _dense_block_image((8, 16, 256))
+                img = _dense_block_image(WIDE)
                 got = [engine.analyze(img, background=1, device="cpu")]
                 imgs = [img]
             elif path == "streamed":
@@ -607,19 +626,23 @@ def test_one_dense_block_under_auto_equals_jax_chunked(path):
                 imgs = [img]
             elif path == "series":
                 a, b = _frames()
-                imgs = [a, _dense_block_image((8, 16, 256)), b]
+                imgs = [a, _dense_block_image(WIDE), b]
                 got = P.analyze_series(imgs, background=1, devices=["cpu"])
             else:
                 img = _dense_block_stack_2x()
                 st = LabeledStack.from_array(img, background=1, device="cpu")
                 got = [analyze_sharded(st, make_mesh(2, device="cpu"))]
                 imgs = [img]
-    assert engine.reroutes == len(caught) == 1
-    assert "more than 4,096 dictionary labels" in str(caught[0].message)
+    sharded = path == "sharded"
+    assert engine.reroutes == len(caught) == int(sharded)
+    if sharded:
+        assert "more than 4,096 dictionary labels" in str(caught[0].message)
     names = [s.name for s in t.stages]
-    # the streamed stack's first slab and the series' ordinary frames are
-    # swept by blocks, once each
-    assert names.count("device sweep (block)") == {"streamed": 1, "series": 2}.get(path, 0)
+    # every stack or slab is swept by blocks once, the dense block beside it
+    # flat; the sharded flat engine sweeps both slabs
+    assert names.count("device sweep (block)") == {"streamed": 2, "series": 3,
+                                                   "sharded": 0}.get(path, 1)
+    assert names.count("device sweep (flat moments)") == (2 if sharded else 1)
     for img, table in zip(imgs, got):
         ref = jax_engine.analyze_stack_chunked(JaxStack.from_array(img, background=1))
         assert_tables_equal(ref, table)

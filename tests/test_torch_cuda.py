@@ -10,6 +10,9 @@ The plain version is held against the JAX package's kernel on the CPU by
 exactly (``torch.equal``), on every block that did not overflow.
 """
 
+import dataclasses
+import warnings
+
 import numpy as np
 import pytest
 
@@ -580,8 +583,11 @@ def test_count_kernel_saturates_past_its_cap(dev):
 
 def test_dense_block_routes_with_no_sweep_on_the_card(dev):
     """One block of 5,462 labels beside three empty ones (1,366 a block by
-    the mean, inside the kernel's bound): ``auto`` counts on the card,
-    reroutes before any sweep, and equals the flat engine."""
+    the mean, inside the kernel's bound): ``auto`` counts on the card and
+    reroutes the whole stack before any sweep, since routing the one block
+    takes more bytes than the flat engine over these 65,536 voxels; with
+    the dense block beside 36 empty ones, it routes that block alone, with
+    one sweep and no warning. Both equal the flat engine."""
     img = np.ones((8, 16, 512), np.int32)
     img[:, :, :128] = 2 + np.arange(8 * 16 * 128).reshape(8, 16, 128) // 3
     st = LabeledStack.from_array(img, background=1, device=dev)
@@ -592,6 +598,50 @@ def test_dense_block_routes_with_no_sweep_on_the_card(dev):
     assert (engine.reroutes, block_sweep.launches - before,
             bs.block_label_counts.launches - counts) == (1, 0, 1)
     _assert_tables_equal(engine.analyze_stack(st, engine="chunked"), got)
+
+    wide = np.ones((8, 16, 128 * 37), np.int32)
+    wide[:, :, :128] = img[:, :, :128]
+    st = LabeledStack.from_array(wide, background=1, device=dev)
+    engine.reroutes = 0
+    before, counts = block_sweep.launches, bs.block_label_counts.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        d = engine.dispatch_stack(st)
+        got = engine.collect_stack(d)
+    assert (engine.reroutes, block_sweep.launches - before,
+            bs.block_label_counts.launches - counts) == (0, 1, 1)
+    assert d.L == 32 and d.split.tolist() == [[0], [0], [0], [0]]
+    _assert_tables_equal(engine.analyze_stack(st, engine="chunked"), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+def test_a_split_with_the_kernel_equals_the_flat_engine(dev, dtype):
+    """An overseg-like stack: Voronoi cells with one interior block of
+    16,384 labels of one voxel. ``auto`` launches one count and one sweep
+    at L=32, routes that block and its z-, y- and x-predecessors to the
+    flat engine, and equals it, in both label widths."""
+    from tissue_analysis_tpu_torch.utils import timing
+
+    shape = (40, 48, 384)
+    img = np.asarray(voronoi_stack(shape, 60, seed=7, sphere=False)).astype(np.int32)
+    img[8:16, 16:32, 128:256] = img.max() + 1 + np.arange(8 * 16 * 128).reshape(8, 16, 128)
+    st = LabeledStack.from_array(img, background=1, device=dev)
+    st = dataclasses.replace(st, dense=st.dense.to(dtype))
+    want = engine.analyze_stack(st, engine="chunked")
+    engine.reroutes = 0
+    before, counts = block_sweep.launches, bs.block_label_counts.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with timing.collect(fence=False) as t:
+            d = engine.dispatch_stack(st)
+            got = engine.collect_stack(d)
+    assert (engine.reroutes, block_sweep.launches - before,
+            bs.block_label_counts.launches - counts) == (0, 1, 1)
+    # blocks (1, 1, 1), (0, 1, 1), (1, 0, 1) and (1, 1, 0) of a 5 x 3 x 3 grid
+    assert d.L == 32 and d.split[0].tolist() == [4, 10, 12, 13]
+    assert t.counts[d.pass_id] == {"splits": 1, "split.blocks": 4, "sweeps": 1,
+                                   "launches.block_label_count": 1, "launches.block_sweep": 1}
+    _assert_tables_equal(want, got)
 
 
 def _sizes_stack(dtype, kmax, shape=(8, 128, 16384)):

@@ -154,6 +154,33 @@ def test_an_overflow_rerun_counts_two_sweeps(img, monkeypatch):
 
 
 def test_a_dense_block_reroutes_and_counts_its_chunks():
+    """A dense block beside nine empty ones goes alone to the flat engine:
+    one split of one block, no reroute and no chunk, the routing in a span
+    of its own under the dispatch and the flat stages after the sweep's
+    launch. Beside one empty block, in chunks of 1,000 voxels, no split
+    pays (routing the block takes more bytes than the flat engine over the
+    stack): the count reroutes the whole stack, and the flat engine counts
+    its chunks."""
+    st = _stack(_dense_block_image((8, 16, 1280)))
+    with timing.collect(fence=False) as t:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            d = engine.dispatch_stack(st, "auto")
+            engine.collect_stack(d)
+    assert t.counts[d.pass_id] == {"splits": 1, "split.blocks": 1, "sweeps": 1}
+    dispatch = t.spans[0]
+    assert _names(_children(t, dispatch)) == ["count", "route", "sweep", "flat.moments",
+                                              "flat.pairs"]
+    (route,) = [s for s in t.spans if s.name == "route"]
+    assert (route.attrs["L"], route.attrs["k"]) == (32, 1)
+    assert [s.site or s.name for s in _children(t, route)] == [
+        "route.counts", "memory_check", "route.blocks"]
+    (finish,) = [s for s in t.spans if s.name == "finish"]
+    assert [s.site or s.name for s in _children(t, finish)] == ["finish.ovf", "combine"]
+    # the count's largest, the counts, the routed blocks' copy, ovf, four
+    # in the pair reduce, five copies to the host
+    assert _syncs(t, d.pass_id) == 13
+
     img = _dense_block_image((8, 16, 256))
     st = _stack(img)
     chunk = 1000
@@ -163,7 +190,25 @@ def test_a_dense_block_reroutes_and_counts_its_chunks():
         engine.collect_stack(d)
     assert t.counts[d.pass_id] == {"reroutes": 1, "flat.chunks": math.ceil(img.size / chunk)}
     dispatch = t.spans[0]
-    assert _names(_children(t, dispatch)) == ["count", "flat.moments", "flat.pairs"]
+    assert _names(_children(t, dispatch)) == ["count", "route", "flat.moments", "flat.pairs"]
+    (route,) = [s for s in t.spans if s.name == "route"]
+    assert [s.site or s.name for s in _children(t, route)] == ["route.counts"]
+
+
+def test_a_pass_with_no_block_past_its_count_is_as_it_was(img):
+    """Where the count finds an L for every block, the pass reads no count
+    of a block and routes nothing: its 11 syncs at the same six sites, and
+    one sweep its only counter."""
+    st = _stack(img)
+    engine.analyze_stack(st)
+    with timing.collect(fence=False) as t:
+        d = engine.dispatch_stack(st)
+        engine.collect_stack(d)
+    assert [(s.site, s.attrs["syncs"]) for s in t.spans if s.wait] == [
+        ("count.largest", 1), ("finish.ovf", 1), ("combine.nonzero", 1), ("combine.mask", 2),
+        ("sum_by_key.unique", 1), ("assemble.readback", 5)]
+    assert not {"route", "flat.moments", "flat.pairs"} & set(_names(t.spans))
+    assert t.counts == {d.pass_id: {"sweeps": 1}}
 
 
 def test_a_sharded_stack_rerouted_after_its_count_stays_one_pass():
@@ -356,17 +401,17 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
 def test_every_sync_of_a_pass_is_in_a_wait_span(card, dense):
-    """The kernel's pass and the flat engine's (a dense block routed under
-    ``auto``, in four chunks)."""
+    """The kernel's pass; with a dense block, the pass that routes that
+    block to the flat engine under ``auto`` and the flat engine's over the
+    whole stack (``chunked``, in four chunks)."""
     img = (_dense_block_image((16, 32, 512)) if dense
            else np.asarray(voronoi_stack((64, 64, 256), 300, seed=5, sphere=False)))
     st = _stack(img, card)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        engine.analyze_stack(st, chunk=1 << 16)  # build and converge first
+    for name, chunk in (("auto", None), ("chunked", 1 << 16)) if dense else (("auto", None),):
+        engine.analyze_stack(st, name, chunk=chunk)  # build and converge first
         torch.cuda.synchronize()
-        got = timing.sync_check(lambda: engine.analyze_stack(st, chunk=1 << 16))
-    assert got["outside_waits"] == [] and got["warnings"] == got["wait_syncs"] > 0
+        got = timing.sync_check(lambda: engine.analyze_stack(st, name, chunk=chunk))
+        assert got["outside_waits"] == [] and got["warnings"] == got["wait_syncs"] > 0
 
 
 @pytest.mark.cuda

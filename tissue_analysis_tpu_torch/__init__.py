@@ -10,10 +10,11 @@ A segmented 2D or 3D image is relabeled on the host
 (:func:`analyze_stack`, kernel ``csrc/block_sweep.cu``) into an exact
 :class:`FeatureTable`, and exported as a cell property graph
 (:func:`graph_from_table`). :func:`analyze_raw` skips the host relabel.
-A stack with more labels in a block than the block sweep's dictionary takes
-goes through the flat engine (``engine="chunked"``,
-:func:`analyze_stack_chunked`), which ``engine="auto"`` reroutes to before
-any sweep, after counting every block's labels on the device.
+A block with more labels than the block sweep's dictionary takes goes
+through the flat engine (``engine="chunked"``, :func:`analyze_stack_chunked`):
+``engine="auto"`` counts every block's labels on the device before any
+sweep and routes those blocks alone there, or the whole stack where that
+does not pay.
 The reference-compatible facade :func:`SpatialImageAnalysis` serves every
 per-cell query from that one table. Time series go through
 :func:`analyze_series` and :func:`temporal_graph_from_images` (lineage

@@ -24,10 +24,16 @@ against the largest L the block engine takes for B blocks on that device
 (:func:`block_capacity`). Then it counts every block's dictionary labels on
 the device (:func:`fit_dictionary`: one pass of a hand-written kernel on a
 card, one readback) and sweeps once at the smallest L of the doubling ladder
-that holds the largest count. A stack past the first test, a block past the
-engine's bound, or on a card outputs at the counted L past the memory the
-device can give: ``"auto"`` warns, adds one to :data:`reroutes` and sweeps
-the stack with the flat engine instead. Nothing reroutes after a launch:
+that holds the largest count. Where a block is past the engine's bound, or
+on a card the outputs at the counted L are past the memory the device can
+give, ``"auto"`` reads every block's count and routes only the blocks past
+a smaller L to the flat engine (:func:`split_plan`): the block sweep runs
+at that L, and the routed blocks are swept flat beside it
+(``ops/flat_blocks.py``), their rows joining its combine. Where no such
+split takes fewer device bytes than the flat engine over the whole stack,
+or the split does not fit the device either, and for a stack past the
+first test: ``"auto"`` warns, adds one to :data:`reroutes` and sweeps the whole
+stack with the flat engine instead. Nothing reroutes after a launch:
 under ``"cuda"`` and ``"torch"`` a block that overflows makes the sweep
 rerun with L doubled, and one that overflows the largest L, a face buffer
 the device cannot hold, or a kernel that fails to build or launch raises
@@ -59,9 +65,10 @@ from tissue_analysis_tpu_torch.core.stack import (
     widened,
 )
 from tissue_analysis_tpu_torch.features.table import FeatureTable
-from tissue_analysis_tpu_torch.ops import combine, segred, stencil
+from tissue_analysis_tpu_torch.ops import combine, flat_blocks, segred, stencil
 from tissue_analysis_tpu_torch.ops.block_sweep import (
     DEFAULT_BLOCK,
+    IMAX,
     PLAIN_MAX_DICT,
     block_sweep,
     block_sweep_reference,
@@ -92,6 +99,7 @@ __all__ = [
     "past_capacity",
     "dispatch_counted",
     "fit_dictionary",
+    "split_plan",
     "ENGINES",
 ]
 
@@ -238,7 +246,8 @@ def givable_bytes(device, want: int) -> Optional[int]:
     return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
-def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
+def fit_dictionary(d: "Dispatched", held: int = 0,
+                   counts: Optional[list] = None) -> Optional[str]:
     """``"auto"``'s exact test of a block sweep ``d`` before its launch.
 
     One count of every block's dictionary labels
@@ -251,8 +260,9 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
     runs once. Returns None, or why no block sweep can take the stack: a
     block past the engine's bound, or on a card outputs at that L (with
     ``held`` bytes that sweeps dispatched beside it will hold on the same
-    device) past :func:`givable_bytes`. A label space no larger than
-    ``d.L`` needs no count."""
+    device) past :func:`givable_bytes`. With a reason, the count is appended
+    to ``counts`` where that is a list, for :func:`_route`. A label space no
+    larger than ``d.L`` needs no count."""
     stack, n = d.stack, d.n_sweep
     if n <= d.L:
         return None
@@ -267,6 +277,8 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
         s.set(B=B, largest=m)
     where = f"a {tuple(d.block)} block of this {tuple(d.image.shape)} image (one of {B})"
     if m > bound:
+        if counts is not None:
+            counts.append(counted)
         return (f"{where} holds more than {bound:,} dictionary labels, the largest "
                 f"dictionary L={bound} the {name!r} block engine takes")
     L = d.L
@@ -276,12 +288,76 @@ def fit_dictionary(d: "Dispatched", held: int = 0) -> Optional[str]:
     with timing.span("memory_check"):
         give = givable_bytes(stack.device, held + need)
     if give is not None and held + need > give:
+        if counts is not None:
+            counts.append(counted)
         return (f"{where} holds {m:,} dictionary labels, so the {name!r} block "
                 f"engine sweeps at L={L}, and its outputs there ([B, L, 3L] face "
                 f"counts and the rest) need {need:,} bytes; {stack.device} can give "
                 f"{give - held:,}")
     d.L = L
     return None
+
+
+def split_plan(counts: np.ndarray, L: int, bound: int, block, whole: int) -> Optional[
+        Tuple[int, int, np.ndarray]]:
+    """The split of a block sweep that ``"auto"`` makes where
+    :func:`fit_dictionary` finds no L for every block: (device bytes, L, the
+    routed blocks), or None for none.
+
+    ``counts`` are the blocks' dictionary sizes (saturated past ``bound``).
+    For each L of the doubling ladder from ``L`` up to ``bound`` at which
+    some block is past L, the block sweep at L and the flat sweep of the
+    blocks past it take :func:`sweep_bytes` plus
+    :func:`~tissue_analysis_tpu_torch.ops.flat_blocks.routed_bytes` of
+    those blocks. The split is the L of the fewest bytes, if they are fewer
+    than ``whole``, the bytes of the flat engine over the whole stack
+    (``stencil.pair_sweep_bytes``, the least its chunks take): a split
+    never asks for more device memory than the flat engine would. Its
+    routed voxels are then fewer than a chunk's, so they are swept in one
+    piece. The routed blocks are int64 indices, ascending."""
+    B = int(counts.size)
+    best = None
+    while True:
+        over = np.flatnonzero(counts > L)
+        if over.size:
+            need = sweep_bytes(B, L) + flat_blocks.routed_bytes(block, over.size)
+            if need < whole and (best is None or need < best[0]):
+                best = (need, L, over)
+        if L >= bound:
+            return best
+        L = min(2 * L, bound)
+
+
+def _route(d: "Dispatched", counted, chunk: Optional[int]) -> bool:
+    """Give the blocks of ``d`` past a smaller L than the count asked for to
+    the flat engine (:func:`split_plan`, against the flat engine in chunks
+    of ``chunk`` voxels): one readback of the count ``counted``, and one
+    copy of the routed blocks and their origins to the device. Sets ``d.L``
+    and ``d.split``; False where no split is cheaper than the flat engine
+    or the device cannot give its bytes."""
+    bound = dict_bound("cuda" if d.sweep is block_sweep else "torch")
+    with timing.span("route") as s:
+        with timing.wait("route.counts"):
+            counts = counted.counts.cpu().numpy()
+        plan = split_plan(counts, d.L, bound, d.block,
+                          stencil.pair_sweep_bytes(d.image.shape, chunk))
+        if plan is None:
+            return False
+        need, L, over = plan
+        with timing.span("memory_check"):
+            give = givable_bytes(d.stack.device, need)
+        if give is not None and need > give:
+            return False
+        split = np.concatenate(
+            [over[None], flat_blocks.block_origins(over, d.stack.shape, d.block)])
+        # the device is idle since the readback: the copy waits for nothing
+        with timing.wait("route.blocks"):
+            d.split = torch.from_numpy(split).to(d.stack.device)
+        d.L = L
+        s.set(L=L, k=int(over.size), bytes=need)
+        timing.count("splits")
+        timing.count("split.blocks", int(over.size))
+    return True
 
 
 def _block_plan(stack: LabeledStack, engine: str, L: int = 32,
@@ -330,8 +406,10 @@ def _dispatch_flat(stack: LabeledStack, chunk: Optional[int] = None) -> "Dispatc
 def dispatch_counted(stack: LabeledStack, L: int = 32, n_bucket: Optional[int] = None,
                      chunk: Optional[int] = None) -> "Dispatched":
     """``"auto"`` past its mean test: the block sweep of ``stack`` at the
-    L that :func:`fit_dictionary` counts, or, where it says no block sweep
-    can take the stack, the flat engine (a warning and one more of
+    L that :func:`fit_dictionary` counts; where it says no block sweep can
+    take every block, the block sweep with the blocks past a smaller L
+    routed to the flat engine (:func:`_route`), or, where no such split
+    pays, the flat engine over the whole stack (a warning and one more of
     :data:`reroutes`). A streamed slab comes here directly: the label count
     of its whole image says nothing of its blocks."""
     pid = timing.new_pass()
@@ -344,11 +422,16 @@ def dispatch_counted(stack: LabeledStack, L: int = 32, n_bucket: Optional[int] =
 def _dispatch_counted(stack: LabeledStack, L: int, n_bucket: Optional[int],
                       chunk: Optional[int]) -> "Dispatched":
     d = _block_plan(stack, block_engine("auto", stack.device), L, n_bucket)
-    why = fit_dictionary(d)
-    if why is not None:
+    counted = []
+    why = fit_dictionary(d, counts=counted)
+    if why is not None and not _route(d, counted.pop(), chunk):
         _reroute(why)
         return _dispatch_flat(stack, chunk)
-    return _launch(d)
+    _launch(d)
+    if d.split is not None:
+        # queued behind the block sweep, while the device runs it
+        d.routed = _sweep_routed(d)
+    return d
 
 
 class Finished(NamedTuple):
@@ -401,6 +484,11 @@ class Dispatched:
     out: object
     # the pass the dispatch opened, which the collect continues
     pass_id: int = 0
+    # the blocks routed to the flat engine, on the device: int64 [4, k],
+    # each block's index, then the z, y and x of its first voxel
+    split: Optional[torch.Tensor] = None
+    # their flat sweep: moment rows and face keys (_sweep_routed)
+    routed: object = None
 
 
 def analyze_stack(
@@ -429,8 +517,9 @@ def analyze_stack(
 
     ``engine="chunked"`` (the flat engine, :func:`flat_sweep`, in chunks of
     ``chunk`` voxels) has no dictionary: it takes neither ``L`` nor
-    ``n_bucket`` into account. ``engine="auto"`` gives it a stack that no
-    block sweep can take, before any launch (see the module docstring).
+    ``n_bucket`` into account. ``engine="auto"`` gives it the blocks that
+    no block sweep can take, or where that does not pay the whole stack,
+    before any launch (see the module docstring).
     The reference's keywords are accepted: ``max_pairs`` (ignored: the
     port's pair table has the size of its content) and ``block_config``
     (None only)."""
@@ -528,11 +617,11 @@ _COLS_2D = [0, 2, 3, 7, 8, 9]
 
 def finish_stack(d: Dispatched) -> Finished:
     """The device side of :func:`collect_stack`: rerun with L doubled while
-    a block overflows, combine the moments and reduce the pairs. No
-    readback. Past the engine's largest L this raises ``RuntimeError``, and
-    past the face buffer the device can hold the sweep's ``ValueError``
-    stands; both name ``engine="chunked"``. A flat engine's dispatch is
-    finished already."""
+    a block overflows (the routed blocks aside), combine the moments and
+    reduce the pairs. No readback. Past the engine's largest L this raises
+    ``RuntimeError``, and past the face buffer the device can hold the
+    sweep's ``ValueError`` stands; both name ``engine="chunked"``. A flat
+    engine's dispatch is finished already."""
     # the handle lets go of the sweep's outputs, so that ``del out`` frees
     # them before the next L's face buffer (4x this one's) is asked for
     out, d.out = d.out, None
@@ -543,7 +632,7 @@ def finish_stack(d: Dispatched) -> Finished:
     Lc = d.L
     bound = dict_bound("cuda" if d.sweep is block_sweep else "torch")
     with timing.span("finish") as fs:
-        while _overflows(out):
+        while _overflows(out, d.split):
             if Lc >= bound:
                 raise RuntimeError(
                     f"per-block dictionary still overflows at L={Lc}, the largest "
@@ -560,21 +649,44 @@ def finish_stack(d: Dispatched) -> Finished:
         return _combine(d, out)
 
 
-def _overflows(out) -> bool:
-    """Whether a block of the sweep ``out`` overflowed its dictionary: one
-    readback."""
+def _overflows(out, split: Optional[torch.Tensor] = None) -> bool:
+    """Whether a block of the sweep ``out`` overflowed its dictionary, the
+    routed blocks (``Dispatched.split``) aside: one readback."""
+    ovf = out.ovf if split is None else out.ovf.index_fill(0, split[0], 0)
     with timing.wait("finish.ovf"):
-        return bool(out.ovf.any())
+        return bool(ovf.any())
+
+
+def _sweep_routed(d: Dispatched):
+    """The flat sweep of the routed blocks of ``d``, under the flat
+    engine's stage names: their moment rows and face keys."""
+    stack, n = d.stack, d.n_sweep
+    vox = d.split.shape[1] * math.prod(d.block)
+    with timing.stage("device sweep (flat moments)", vox, stack.device, span="flat.moments"):
+        box, coords = flat_blocks.gather_blocks(stack.dense, n, d.block, d.split[1:])
+        rows = flat_blocks.moment_rows(box, coords, d.block)
+    with timing.stage("device sweep (flat pairs)", vox, stack.device, span="flat.pairs"):
+        keys = flat_blocks.pair_keys(box, n)
+    return rows, keys
 
 
 def _combine(d: Dispatched, out) -> Finished:
-    """The combine and pair reduce of a converged sweep ``out`` of ``d``."""
+    """The combine and pair reduce of a converged sweep ``out`` of ``d``;
+    where it routed blocks, their ids in ``out`` are set to IMAX, so that
+    the combine drops their rows and face entries (undefined where the
+    block overflowed), and their flat sweep's rows and keys join it."""
     stack, n, n_sweep = d.stack, d.stack.n_labels, d.n_sweep
+    rows = keys = None
+    if d.split is not None:
+        out.ids.index_fill_(0, d.split[0], IMAX)
+        (rows, keys), d.routed = d.routed, None
     with timing.stage("combine + pair reduce", None, stack.device, span="combine"):
         mom, cmin, cmax = combine.combine_moments(
-            out.ids, out.mom, out.gmin, out.gmax, n_sweep
+            out.ids, out.mom, out.gmin, out.gmax, n_sweep, rows
         )
-        pkey, ptotal = combine.reduce_pairs(out.ids, out.faces, n_sweep)
+        # the rows are in the tables: let them go before the pair reduce
+        del rows
+        pkey, ptotal = combine.reduce_pairs(out.ids, out.faces, n_sweep, keys)
         mom, cmin, cmax = mom[:n], cmin[:n], cmax[:n]
         if n_sweep != n:
             # keys of the n_sweep space → the n space (hi < n: order kept)

@@ -25,9 +25,14 @@ __all__ = ["combine_moments", "reduce_pairs", "sum_by_key", "shift_moments", "de
 
 def combine_moments(
     ids: torch.Tensor, mom: torch.Tensor, gmin: torch.Tensor,
-    gmax: torch.Tensor, n: int,
+    gmax: torch.Tensor, n: int, rows=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segment-combine (block, slot) rows into per-label tables.
+
+    ``rows``, where given, are further rows of other blocks (``seg`` int64
+    [r], ``mom`` int64 [r, 10], ``coord`` int32 [r, 3]: one voxel each,
+    segment n where none), added into the same tables
+    (``ops.flat_blocks.moment_rows``).
 
     Returns (moments int64 [n, 10], cmin int32 [n, 3], cmax int32 [n, 3]);
     labels with no voxel keep cmin = IMAX, cmax = -1."""
@@ -40,16 +45,25 @@ def combine_moments(
     cmin.scatter_reduce_(0, seg3, gmin.reshape(-1, 3), "amin")
     cmax = torch.full((n + 1, 3), -1, dtype=torch.int32, device=dev)
     cmax.scatter_reduce_(0, seg3, gmax.reshape(-1, 3), "amax")
+    if rows is not None:
+        rseg, rmom, coord = rows
+        table.index_add_(0, rseg, rmom)
+        rseg3 = rseg[:, None].expand(-1, 3)
+        cmin.scatter_reduce_(0, rseg3, coord, "amin")
+        cmax.scatter_reduce_(0, rseg3, coord, "amax")
     return table[:n], cmin[:n], cmax[:n]
 
 
 def reduce_pairs(
-    ids: torch.Tensor, faces: torch.Tensor, n: int
+    ids: torch.Tensor, faces: torch.Tensor, n: int, keys=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nonzero face entries → (sorted unique keys, totals), int64 each.
 
     key = lo·4n + hi·4 + axis for the label pair lo < hi < n and the face
-    axis; totals sum the entries of equal keys across blocks."""
+    axis; totals sum the entries of equal keys across blocks. ``keys``,
+    where given, are the faces of other blocks, one each (int64 keys and
+    the bool mask of those that are faces, ``ops.flat_blocks.pair_keys``),
+    joined before the one mask and the one reduction."""
     L = ids.shape[1]
     with timing.wait("combine.nonzero"):
         b, s, c = torch.nonzero(faces, as_tuple=True)
@@ -60,8 +74,13 @@ def reduce_pairs(
     lo = torch.minimum(ga, gb)
     hi = torch.maximum(ga, gb)
     ok = (hi < n) & (lo != hi)
+    key = lo * (4 * n) + hi * 4 + axis
+    if keys is not None:
+        key = torch.cat([key, keys[0]])
+        cnt = torch.cat([cnt, cnt.new_ones(keys[0].shape)])
+        ok = torch.cat([ok, keys[1]])
     with timing.wait("combine.mask", syncs=2):
-        key, cnt = (lo * (4 * n) + hi * 4 + axis)[ok], cnt[ok]
+        key, cnt = key[ok], cnt[ok]
     return sum_by_key(key, cnt)
 
 

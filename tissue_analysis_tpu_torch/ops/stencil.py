@@ -45,7 +45,14 @@ __all__ = [
     "chunked_key_reduce",
     "compact_runs_to_coo",
     "margin_presence",
+    "pair_sweep_bytes",
+    "PAIR_BYTES",
 ]
+
+#: device bytes :func:`pair_sweep` holds at least a voxel of a slab, as it
+#: makes an axis's keys: the int32 lo and hi, the mask, and three int64
+#: terms of the key alive at once
+PAIR_BYTES = 4 + 4 + 1 + 3 * 8
 
 
 def default_max_pairs(n_labels: int) -> int:
@@ -199,6 +206,15 @@ def margin_presence(lab: torch.Tensor, n_labels: int) -> torch.Tensor:
     present = torch.zeros(n, dtype=torch.bool, device=lab.device)
     present[boundary] = True
     return present
+
+
+def pair_sweep_bytes(shape, chunk: Optional[int] = None) -> int:
+    """The least device bytes :func:`pair_sweep` takes over a stack of
+    ``shape`` in slabs of about ``chunk`` voxels: :data:`PAIR_BYTES` a voxel
+    of its largest slab. The flat engine takes no fewer."""
+    chunk = DEFAULT_CHUNK if chunk is None else int(chunk)
+    plane = math.prod(int(s) for s in shape[1:])
+    return PAIR_BYTES * min(math.prod(int(s) for s in shape), max(1, chunk // plane) * plane)
 
 
 def pair_sweep(

@@ -15,10 +15,11 @@ A confocal time series is a first-class batch:
   ``TemporalPropertyGraph.extend`` flow).
 
 Counterpart of ``tissue_analysis_tpu/series.py``. Each frame goes through
-``dispatch_stack``'s ``engine="auto"``: a frame that no block sweep can take
-(one block past the dictionary, found by the count before its sweep) goes
-to the flat engine with a warning, the others to the block engine. A frame
-that fails raises: nothing is rerouted after a launch.
+``dispatch_stack``'s ``engine="auto"``: the blocks of a frame that no block
+sweep can take (past the dictionary, found by the count before its sweep)
+go to the flat engine beside the frame's block sweep, or the whole frame
+with a warning where that does not pay. A frame that fails raises: nothing
+is rerouted after a launch.
 """
 
 from __future__ import annotations

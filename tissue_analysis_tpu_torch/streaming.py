@@ -16,9 +16,10 @@ dividing the depth or not.
   z; the global z offset is re-applied on the host in exact int64
   (:func:`_shift_moments_z`). Under ``engine="auto"`` each slab's blocks
   are counted and the slab routed on its own
-  (:func:`~tissue_analysis_tpu_torch.engine.dispatch_counted`): a slab that
-  no block sweep can take goes to the flat engine, the others to the block
-  engine, and the host combine takes either table.
+  (:func:`~tissue_analysis_tpu_torch.engine.dispatch_counted`): the
+  blocks of a slab that no block sweep can take go to the flat engine
+  beside the slab's block sweep, or the whole slab where that does not
+  pay, and the host combine takes either table.
 - The slab's own far z plane reads as the dropped label and counts no
   face. The z-faces between the previous slab's last plane, kept on the
   device, and this slab's first plane are counted by
@@ -283,8 +284,9 @@ def analyze_streamed(
     stack's depth. ``engine`` takes the
     port's names or the JAX package's (``pallas`` → ``cuda``, ``blocked``
     → ``torch``). ``auto`` counts each slab's blocks before its sweep and
-    gives a slab that no block sweep can take to the flat engine, with a
-    warning (``engine.reroutes``); any other name applies to every slab, so
+    gives the blocks that no block sweep can take to the flat engine, or
+    the whole slab where that does not pay, with a warning
+    (``engine.reroutes``); any other name applies to every slab, so
     ``cuda`` and ``torch`` raise where a block is past their dictionary and
     ``chunked`` sweeps every slab with the flat engine. ``cfg`` is the
     reference's (None only).
